@@ -1,0 +1,78 @@
+"""Carry state between the JAX reference package and the port.
+
+The reference's pytrees arrive as numpy arrays (``jax.tree_util.tree_map(
+np.asarray, state)`` keeps their NamedTuple types) and are read by
+attribute name only, so this module imports nothing of the reference.
+Each ``*_from_numpy`` builds the port's type on ``device``; :func:`to_numpy`
+turns any of the port's pytrees back into numpy arrays. A test can then
+start both packages from the same ``init_batch`` state and compare them
+step by step.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.boosting.batched_sparrow import BatchedSparrowState
+from repro_torch.boosting.scanner import SampleState, ScannerState
+from repro_torch.boosting.stumps import StumpModel
+from repro_torch.core.worker import tree_map
+
+
+def tensor(a: Any, device) -> torch.Tensor:
+    """numpy array (or scalar) -> tensor on ``device``, same dtype."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def to_numpy(tree: Any) -> Any:
+    """Any pytree of the port's tensors -> the same pytree of numpy arrays."""
+    return tree_map(lambda a: a.detach().cpu().numpy(), tree)
+
+
+def stump_model_from_numpy(model: Any, device) -> StumpModel:
+    return StumpModel(*(tensor(getattr(model, f), device) for f in StumpModel._fields))
+
+
+def sample_from_numpy(sample: Any, device) -> SampleState:
+    return SampleState(*(tensor(getattr(sample, f), device) for f in SampleState._fields))
+
+
+def scanner_from_numpy(scanner: Any, device) -> ScannerState:
+    return ScannerState(*(tensor(getattr(scanner, f), device) for f in ScannerState._fields))
+
+
+def dataset_from_numpy(xb: Any, y: Any, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (
+        tensor(np.asarray(xb, np.int32), device),
+        tensor(np.asarray(y, np.float32), device),
+    )
+
+
+def batched_state_from_numpy(state: Any, seed: int, device) -> BatchedSparrowState:
+    """The reference's ``BatchedSparrowState`` -> the port's.
+
+    The reference's ``key`` leaf is replaced by the port's random-stream
+    bookkeeping: worker ``i`` draws from stream ``seed + 1000*i`` (the
+    seed of its reference key), and it has drawn ``resamples + 1`` offsets
+    (one at ``init_batch``, one per resample — each splits the key once)."""
+    resamples = np.asarray(state.resamples)
+    w = resamples.shape[0]
+    return BatchedSparrowState(
+        model=stump_model_from_numpy(state.model, device),
+        cert=tensor(state.cert, device),
+        scanner=scanner_from_numpy(state.scanner, device),
+        sample=sample_from_numpy(state.sample, device),
+        disk_margin=tensor(state.disk_margin, device),
+        disk_t=tensor(state.disk_t, device),
+        stream=tensor(seed + 1000 * np.arange(w, dtype=np.int64), device),
+        draws=tensor((resamples + 1).astype(np.int32), device),
+        needs_resample=tensor(state.needs_resample, device),
+        fires=tensor(state.fires, device),
+        resamples=tensor(resamples, device),
+        sample_model_count=tensor(state.sample_model_count, device),
+        scan_since_resample=tensor(state.scan_since_resample, device),
+        feat_mask=tensor(state.feat_mask, device),
+    )
