@@ -11,8 +11,11 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
   device     the card, its name and power limit (nvidia-smi);
   build      nvcc builds the kernel library from ``src/repro_torch/kernels/csrc``;
   kernels    K1 edge_scan, K2 round_step, K3 queue_ingest against their
-             plain versions at the main path's shapes and at large W, with
-             times (CUDA events, median of 25 samples of 20 calls);
+             plain versions at the main path's shapes and at large W, and
+             K4 weight_update (A, c from scatter_model_slice of a random
+             256-stump model) at a full disk refresh (n=180 000, d=64, B=8)
+             and two ragged shapes, with times (CUDA events, median of 25
+             samples of 20 calls);
   small_ref  a small run of the whole slice on the card (kernels) against
              the same run on the CPU (plain versions);
   main       the paper's configuration (configs/sparrow.py: n=200 000,
@@ -22,7 +25,17 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
   profile    device time by kernel over 20 rounds of the same run, and
              the device's idle share against the main run's wall time;
   exact      the same run on the dense in-flight buffer and dense control
-             plane must give bit-identical certificates and history.
+             plane must give bit-identical certificates and history;
+  k4_model   K4 over the training split on the best model of main, the
+             whole rule and its second half: the margins must match
+             predict_margin and margin_delta_oracle;
+  sim_small_ref  a small TMSNSimulator run over the unbatched SparrowWorker
+             (kernel K1 on) on the card against the same run on the CPU;
+  sim_main   the event simulator at the paper's configuration (W=10,
+             worker 9 at speed 0.1) for SIM_EVENTS events, one K1 launch
+             per scan segment;
+  baselines  exact greedy and GOSS (25 rounds each) on the training split,
+             and the bulk-synchronous baseline for 20 rounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -49,6 +62,9 @@ FP32_OPS_PER_S = 67e12
 
 ROUNDS = 200
 SEED = 0
+#: events of the sim_main phase (chosen so that it ends within about a minute)
+SIM_EVENTS = 2000
+ENGINE_KERNELS = ("edge_scan", "round_step", "queue_ingest")
 
 
 def log(msg: str) -> None:
@@ -69,7 +85,7 @@ def main() -> int:
         print("phase device FAILED: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, ref, scatter_model_slice
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -120,6 +136,23 @@ def main() -> int:
             torch.cuda.synchronize()
         total_us = sum(e.self_device_time_total for e in prof.key_averages())
         return total_us / reps / 1e3 if total_us > 0 else None
+
+    def cold_ms(fn, samples: int = 25) -> float:
+        """Time of one call with the 50 MB L2 flushed before it, as a
+        caller that touches the data once (a full disk refresh) sees it."""
+        flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+        fn()
+        out = []
+        for _ in range(samples):
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
 
     records = {}
 
@@ -214,6 +247,60 @@ def main() -> int:
             record("queue_ingest", "src/repro_torch/kernels/csrc/queue_ingest.cu",
                    "src/repro/kernels/round_step.py:155", 0.0, (nw, m) == (10, 1), ms, plain_ms,
                    bnd, None, dev_ms)
+
+    # K4 weight_update, with (A, c) from scatter_model_slice
+    from repro_torch.boosting.stumps import StumpModel
+
+    for n, d, nb in [(180_000, 64, 8), (777, 16, 32), (5, 8, 8)]:
+        xb = torch.randint(0, nb, (n, d), generator=g, device=dev, dtype=torch.int32)
+        y = torch.where(torch.rand((n,), generator=g, device=dev) < 0.5, 1.0, -1.0)
+        ml = torch.randn((n,), generator=g, device=dev) * 0.5
+        ms_ = torch.randn((n,), generator=g, device=dev) * 0.5
+        t = 256
+        model = StumpModel(
+            feat=torch.randint(0, d, (t,), generator=g, device=dev, dtype=torch.int32),
+            thr=torch.randint(0, nb - 1, (t,), generator=g, device=dev, dtype=torch.int32),
+            sign=torch.where(torch.rand((t,), generator=g, device=dev) < 0.5, 1.0, -1.0),
+            alpha=torch.rand((t,), generator=g, device=dev) * 0.29 + 0.01,
+            count=torch.tensor(t, dtype=torch.int32, device=dev),
+        )
+        a, c = scatter_model_slice(model, 0, t, nb, d)
+        a2, c2 = scatter_model_slice(model, torch.tensor(0, device=dev), torch.tensor(t, device=dev), nb, d)
+        got = ops.weight_update(xb, y, ml, ms_, a, c, num_bins=nb)
+        again = ops.weight_update(xb, y, ml, ms_, a, c, num_bins=nb)
+        plain = ref.weight_update_ref(xb, y, ml, ms_, a, c, nb)
+        torch.cuda.synchronize()
+        det = torch.equal(a, a2) and torch.equal(c, c2) and all(torch.equal(u, v) for u, v in zip(got, again))
+        close = all(torch.allclose(u, v, rtol=1e-4, atol=1e-5) for u, v in zip(got, plain))
+        err = float((got[0] - plain[0]).abs().max())
+        w_rel = float(((got[1] - plain[1]).abs() / plain[1].abs()).max())
+        if not (det and close):
+            raise AssertionError(f"K4 n={n} d={d} B={nb}: deterministic={det} allclose(1e-4, 1e-5)={close} "
+                                 f"margin err={err} w rel err={w_rel}")
+        if n == 180_000:
+            ms = time_ms(lambda: ops.weight_update(xb, y, ml, ms_, a, c, num_bins=nb))
+            cold = cold_ms(lambda: ops.weight_update(xb, y, ml, ms_, a, c, num_bins=nb))
+            plain_ms = time_ms(lambda: ref.weight_update_ref(xb, y, ml, ms_, a, c, nb), reps=5, samples=9)
+            dev_ms = device_ms(lambda: ops.weight_update(xb, y, ml, ms_, a, c, num_bins=nb))
+            nbytes = xb.numel() * 4 + 3 * n * 4 + 2 * n * 4 + a.numel() * 4 + 4
+            bnd = bound(nbytes, 2 * n * d * (nb - 1))
+            records["weight_update"] = {
+                "name": "weight_update", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/weight_update.cu",
+                "replaces": "src/repro/kernels/weight_update.py:56", "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None, "device_ms": dev_ms, "cold_ms": cold, "max_rel_err_w": w_rel,
+            }
+            log(f"phase kernels K4 weight_update n={n} d={d} B={nb} deterministic={det} "
+                f"max_abs_err={err:.3g} w_max_rel_err={w_rel:.3g} ms={ms:.5f} cold_ms={cold:.5f} "
+                f"device_ms={dev_ms} plain_ms={plain_ms:.5f} bound_ms={bnd[0]:.5f} ({bnd[1]})")
+        else:
+            rec = records["weight_update"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["max_rel_err_w"] = max(rec["max_rel_err_w"], w_rel)
+            log(f"phase kernels K4 weight_update n={n} d={d} B={nb} deterministic={det} "
+                f"max_abs_err={err:.3g} w_max_rel_err={w_rel:.3g}")
+        del xb, y, ml, ms_, got, again, plain
     log("phase kernels ok")
 
     # ------------------------------------------------------------- small_ref
@@ -291,10 +378,10 @@ def main() -> int:
         raise AssertionError(f"main: test error {err} not below the minority rate {minority}")
     if res.messages_evicted != 0:
         raise AssertionError("main: the pending queues evicted messages at C=64")
-    for name, count in launches.items():
-        if count < res.rounds:
-            raise AssertionError(f"main: {name} launched {count} times in {res.rounds} rounds")
-        records[name]["launches"] = count
+    for name in ENGINE_KERNELS:
+        if launches[name] < res.rounds:
+            raise AssertionError(f"main: {name} launched {launches[name]} times in {res.rounds} rounds")
+        records[name]["launches"] = launches[name]
 
     # --------------------------------------------------------------- profile
     # where a round's time goes: device time by kernel over a short run
@@ -330,7 +417,141 @@ def main() -> int:
     log(f"phase exact ok dense==sparse certificates and history ({len(res.history)} entries, "
         f"{dense.rounds} rounds) dense_wall_s={dense_wall:.3f}")
 
-    log(json.dumps({"kernels": [records[k] for k in ("edge_scan", "round_step", "queue_ingest")]}))
+    # -------------------------------------------------------------- k4_model
+    # K4 on the model main trained: from zero margins, margin' is the
+    # model's margin (whole rule) and the margin delta of its second half
+    from repro_torch.boosting.stumps import exp_loss, predict_margin
+
+    model = res.final_models[best]
+    count = int(model.count)
+    n_tr, d = xtr.shape
+    nb = DATA.num_bins
+    ones = torch.ones((n_tr,), device=dev)
+    zeros = torch.zeros((n_tr,), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    full_a, full_c = scatter_model_slice(model, 0, count, nb, d)
+    m_full, _ = ops.weight_update(xtr, ones, zeros, zeros, full_a, full_c, num_bins=nb)
+    half_a, half_c = scatter_model_slice(model, count // 2, count, nb, d)
+    m_half, _ = ops.weight_update(xtr, ones, zeros, zeros, half_a, half_c, num_bins=nb)
+    torch.cuda.synchronize()
+    k4_launches = ops.LAUNCHES["weight_update"]
+    want_full = predict_margin(model, xtr)
+    want_half = ref.margin_delta_oracle(model, xtr, count // 2, count)
+    err_full = float((m_full - want_full).abs().max())
+    err_half = float((m_half - want_half).abs().max())
+    # both references sum up to 256 float32 terms of up to ~0.5 in sequence
+    ok = (torch.allclose(m_full, want_full, rtol=1e-4, atol=1e-4)
+          and torch.allclose(m_half, want_half, rtol=1e-4, atol=1e-4))
+    log(f"phase k4_model stumps={count} rows={n_tr} launches={k4_launches} max_abs_err_full={err_full:.3g} "
+        f"max_abs_err_half={err_half:.3g} "
+        f"margin_range=[{float(want_full.min()):.4f}, {float(want_full.max()):.4f}]")
+    if not ok or k4_launches < 1:
+        raise AssertionError(f"k4_model: K4 margins differ from the model's (full {err_full}, "
+                             f"half {err_half}) or K4 launched {k4_launches} times")
+    records["weight_update"]["launches"] = k4_launches
+
+    # --------------------------------------------------------- sim_small_ref
+    from repro_torch.boosting.sparrow import SparrowWorker
+    from repro_torch.core.simulator import SimulatorConfig, TMSNSimulator, WorkerSpec, run_bsp_baseline
+
+    sims = {}
+    small_specs = [WorkerSpec(), WorkerSpec(), WorkerSpec(), WorkerSpec(speed=0.1)]
+    for name in ("cpu", "cuda"):
+        wk = SparrowWorker(sxb, sy, scfg, device=name, uniforms=np_uniforms)
+        sims[name] = TMSNSimulator(
+            wk, small_specs, SimulatorConfig(n_workers=4, eps=0.0, seed=SEED, max_events=300)
+        ).run()
+    a, b = sims["cpu"], sims["cuda"]
+    same_keys = [h[:2] for h in a.history] == [h[:2] for h in b.history]
+    cert_err = max(abs(x[2] - y[2]) for x, y in zip(a.history, b.history))
+    if not (same_keys and np.allclose(a.final_certificates, b.final_certificates, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"sim_small_ref: card run differs from the CPU run "
+                             f"(same history keys={same_keys}, max cert err={cert_err:.3g})")
+    log(f"phase sim_small_ref ok events={b.events_processed} history={len(b.history)} "
+        f"accepted={b.messages_accepted} max_cert_err={cert_err:.3g} best={min(b.final_certificates):.6f}")
+
+    # -------------------------------------------------------------- sim_main
+    class CountingSparrow(SparrowWorker):
+        """Counts scan segments (one K1 launch each) and resamples."""
+
+        scans = 0
+        resamples = 0
+
+        def _scan_one_chunk(self, state):
+            self.scans += 1
+            return super()._scan_one_chunk(state)
+
+        def _resample(self, state):
+            self.resamples += 1
+            return super()._resample(state)
+
+    sim_worker = CountingSparrow(xtr, ytr, cfg, device="cuda")
+    specs = [WorkerSpec()] * (cfg.n_workers - 1) + [WorkerSpec(speed=0.1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sres = TMSNSimulator(
+        sim_worker, specs, SimulatorConfig(n_workers=cfg.n_workers, eps=0.0, seed=SEED, max_events=SIM_EVENTS)
+    ).run()
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    sim_launches = dict(ops.LAUNCHES)
+    sim_peak = torch.cuda.max_memory_allocated()
+    sbest = int(np.argmin(sres.final_certificates))
+    serr = float(error_rate(sres.final_models[sbest], xte, yte))
+    sloss = float(exp_loss(sres.final_models[sbest], xte, yte))
+    log(f"phase sim_main max_events={SIM_EVENTS} events={sres.events_processed} wall_s={sim_wall:.3f} "
+        f"events_per_s={sres.events_processed / sim_wall:.2f} scans={sim_worker.scans} "
+        f"resamples={sim_worker.resamples} sent={sres.messages_sent} accepted={sres.messages_accepted} "
+        f"sim_time={sres.sim_time:.6g} cost_units={sres.cost_units_total:.6g} "
+        f"best_cert={sres.final_certificates[sbest]:.6f} stumps={int(sres.final_models[sbest].count)} "
+        f"test_exp_loss={sloss:.4f} test_error={serr:.4f} minority_rate={minority:.4f} "
+        f"max_memory_allocated={sim_peak} launches={json.dumps(sim_launches)}")
+    scerts = np.asarray(sres.final_certificates)
+    if not np.all(np.isfinite(scerts)) or not scerts.min() < 0:
+        raise AssertionError(f"sim_main: certificates {scerts}")
+    for wid in range(cfg.n_workers):
+        trace = [h[2] for h in sres.history if h[1] == wid]
+        if any(b > a for a, b in zip(trace, trace[1:])):
+            raise AssertionError(f"sim_main: certificate of worker {wid} rose")
+    if not serr < minority:
+        raise AssertionError(f"sim_main: test error {serr} not below the minority rate {minority}")
+    if sim_launches["edge_scan"] != sim_worker.scans or sim_worker.scans == 0:
+        raise AssertionError(
+            f"sim_main: {sim_launches['edge_scan']} K1 launches for {sim_worker.scans} scans")
+    records["edge_scan"]["launches_sim_main"] = sim_launches["edge_scan"]
+
+    # ------------------------------------------------------------- baselines
+    from repro_torch.boosting.baselines import BoosterConfig, train_exact_greedy, train_goss
+
+    bcfg = BoosterConfig(num_rounds=25, num_bins=nb, eval_every=24)
+    for name, fn in (("exact_greedy", train_exact_greedy), ("goss", train_goss)):
+        t0 = time.perf_counter()
+        tr = fn(xtr, ytr, bcfg, eval_fn=lambda m: float(exp_loss(m, xte, yte)))
+        torch.cuda.synchronize()
+        bwall = time.perf_counter() - t0
+        berr = float(error_rate(tr.model, xte, yte))
+        log(f"phase baselines {name} rounds={bcfg.num_rounds} wall_s={bwall:.3f} "
+            f"cost_units={tr.cost[-1]:.6g} test_exp_loss={tr.metric[-1]:.4f} test_error={berr:.4f}")
+        if not (tr.metric[-1] < 1.0 and berr < minority):
+            raise AssertionError(f"baselines: {name} test loss {tr.metric[-1]}, error {berr}")
+    t0 = time.perf_counter()
+    bsp = run_bsp_baseline(sim_worker, specs, SimulatorConfig(n_workers=cfg.n_workers, eps=0.0, seed=SEED),
+                           rounds=20)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    bbest = int(np.argmin(bsp.final_certificates))
+    bloss = float(exp_loss(bsp.final_models[bbest], xte, yte))
+    berr = float(error_rate(bsp.final_models[bbest], xte, yte))
+    log(f"phase baselines bsp rounds=20 wall_s={bwall:.3f} sim_time={bsp.sim_time:.6g} "
+        f"cost_units={bsp.cost_units_total:.6g} wait_s={sum(bsp.wait_time):.6g} "
+        f"best_cert={bsp.final_certificates[bbest]:.6f} test_exp_loss={bloss:.4f} test_error={berr:.4f}")
+    if not (bloss < 1.0 and berr < minority):
+        raise AssertionError(f"baselines: bsp test loss {bloss}, error {berr}")
+
+    log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.boosting.sampler import GeneratorUniforms
 from repro_torch.boosting.scanner import (
     SampleState,
     ScannerState,
@@ -40,6 +41,7 @@ from repro_torch.boosting.sparrow import (
     STUMP_EVAL_COST,
     SparrowConfig,
     SparrowWorkerBase,
+    _row,
     draw_sample,
 )
 from repro_torch.boosting.stumps import (
@@ -71,31 +73,6 @@ class BatchedSparrowState(NamedTuple):
     sample_model_count: torch.Tensor  # (W,) i32
     scan_since_resample: torch.Tensor  # (W,) f32
     feat_mask: torch.Tensor  # (W, d) bool — feature ownership (constant)
-
-
-class GeneratorUniforms:
-    """Default source of uniform offsets: one ``torch.Generator`` per
-    stream on ``device``, seeded with the stream id; draw ``j`` is the
-    ``j``-th ``torch.rand(())`` of that generator (cached, so any order
-    of requests gives the same numbers)."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self._streams: dict[int, tuple[torch.Generator, list[torch.Tensor]]] = {}
-
-    def __call__(self, stream: int, draw: int) -> torch.Tensor:
-        if stream not in self._streams:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(stream)
-            self._streams[stream] = (g, [])
-        g, drawn = self._streams[stream]
-        while len(drawn) <= draw:
-            drawn.append(torch.rand((), generator=g, device=self.device))
-        return drawn[draw]
-
-
-def _row(tree, i: int):
-    return tree_map(lambda a: a[i], tree)
 
 
 def common_prefix_len(a: StumpModel, b: StumpModel) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.boosting.batched_sparrow import BatchedSparrowState
 from repro_torch.boosting.scanner import SampleState, ScannerState
+from repro_torch.boosting.sparrow import SparrowState
 from repro_torch.boosting.stumps import StumpModel
 from repro_torch.core.worker import tree_map
 
@@ -75,4 +76,30 @@ def batched_state_from_numpy(state: Any, seed: int, device) -> BatchedSparrowSta
         sample_model_count=tensor(state.sample_model_count, device),
         scan_since_resample=tensor(state.scan_since_resample, device),
         feat_mask=tensor(state.feat_mask, device),
+    )
+
+
+def sparrow_state_from_numpy(state: Any, seed: int, device) -> SparrowState:
+    """The reference's unbatched ``SparrowState`` -> the port's.
+
+    As in :func:`batched_state_from_numpy`, the reference's ``key`` is
+    replaced by the stream ``seed`` it was made from (the simulator seeds
+    worker ``i`` with ``config.seed + 1000*i``) and the ``resamples + 1``
+    offsets drawn so far. Bookkeeping leaves become Python numbers."""
+    return SparrowState(
+        worker_id=int(state.worker_id),
+        model=stump_model_from_numpy(state.model, device),
+        cert=float(state.cert),
+        scanner=scanner_from_numpy(state.scanner, device),
+        sample=sample_from_numpy(state.sample, device),
+        disk_margin=tensor(state.disk_margin, device),
+        disk_t=tensor(state.disk_t, device),
+        stream=int(seed),
+        draws=int(state.resamples) + 1,
+        needs_resample=bool(state.needs_resample),
+        pending_cost=float(state.pending_cost),
+        fires=int(state.fires),
+        resamples=int(state.resamples),
+        sample_model_count=int(state.sample_model_count),
+        scan_since_resample=float(state.scan_since_resample),
     )

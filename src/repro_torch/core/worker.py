@@ -1,5 +1,11 @@
-"""The batched worker contract the round engine drives; counterpart of
-the batched half of ``src/repro/core/worker.py``.
+"""The worker contracts; counterpart of ``src/repro/core/worker.py``.
+
+Two fidelity levels, one vocabulary:
+
+  * :class:`TMSNWorker` — the event simulator's worker
+    (:mod:`repro_torch.core.simulator`): opaque state objects, one per
+    logical machine, Python floats for certificates;
+  * :class:`BatchedTMSNWorker` — the round engine's worker.
 
 A :class:`BatchedTMSNWorker` keeps all W workers' state as a pytree of
 tensors (``NamedTuple``, ``tuple``, ``list`` or ``dict`` nodes) with a
@@ -17,6 +23,7 @@ from typing import Any, Protocol
 import torch
 
 __all__ = [
+    "TMSNWorker",
     "BatchedTMSNWorker",
     "masked_rows",
     "has_resample_hooks",
@@ -43,6 +50,29 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+class TMSNWorker(Protocol):
+    """Duck-typed worker plugged into the event simulator. State objects
+    are opaque to the simulator; certificates are floats (lower = better)."""
+
+    def init_state(self, worker_id: int, seed: int) -> Any: ...
+
+    def run_segment(self, state: Any) -> tuple[Any, float, bool]:
+        """One scheduling quantum: ``(new_state, cost_units, fired)``, where
+        ``cost_units`` is the simulated compute cost of the segment and
+        ``fired`` says the worker found a better model in it."""
+        ...
+
+    def certificate(self, state: Any) -> float: ...
+
+    def export_model(self, state: Any) -> Any: ...
+
+    def adopt(self, state: Any, model: Any, certificate: float) -> Any:
+        """Interrupt: replace (H, L) with the incoming pair."""
+        ...
+
+    def payload_bytes(self, model: Any) -> int: ...
 
 
 class BatchedTMSNWorker(Protocol):

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("edge_scan.cu", "round_step.cu", "queue_ingest.cu")
+SOURCES = ("edge_scan.cu", "round_step.cu", "queue_ingest.cu", "weight_update.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -41,6 +41,7 @@ SIGNATURES = {
     "edge_scan_launch": [_P] * 7 + [_I] * 5 + [_P],
     "round_step_launch": [_P] * 8 + [_I, _F] + [_P] * 8 + [_I, _I, _P],
     "queue_ingest_launch": [_P] * 12 + [_I] * 4 + [_P],
+    "weight_update_launch": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

@@ -1,5 +1,5 @@
 """Wrappers of the hand-written CUDA kernels (K1 ``edge_scan``, K2
-``round_deliver``, K3 ``queue_ingest``).
+``round_deliver``, K3 ``queue_ingest``, K4 ``weight_update``).
 
 Counterpart of ``src/repro/kernels/ops.py``. Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``
@@ -22,12 +22,16 @@ from repro_torch.kernels import ref
 
 #: launches per kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0}
+LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0}
 
 #: rows per K1 block tile (a 256-thread block walks them in row groups)
 EDGE_SCAN_TILE_N = 256
 #: K3 stages each row's C+m entries (16 B each) in shared memory
 _QUEUE_INGEST_SMEM = 48 * 1024
+#: rows per K4 block (one thread per row)
+WEIGHT_UPDATE_TILE_N = 128
+#: shared memory one block may use on an H100 (232 448 B, opted in above 48 KB)
+_MAX_BLOCK_SMEM = 232_448
 
 
 def reset_launches() -> None:
@@ -207,4 +211,59 @@ def queue_ingest(
     return outs
 
 
-__all__ = ["LAUNCHES", "edge_scan", "queue_ingest", "reset_launches", "round_deliver"]
+def weight_update(
+    xb: torch.Tensor,
+    y: torch.Tensor,
+    margin_l: torch.Tensor,
+    margin_s: torch.Tensor,
+    a: torch.Tensor,
+    c: float | torch.Tensor,
+    *,
+    num_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: fused incremental margin + weight refresh. ``xb (n, d)`` int32,
+    ``y``/``margin_l``/``margin_s (n,)`` f32, ``a (d, B-1)`` f32 and ``c``
+    a float or a one-element f32 tensor (from
+    :func:`~repro_torch.kernels.weight_update.scatter_model_slice`) ->
+    ``(margin' (n,), w (n,))``. Same contract as
+    :func:`.ref.weight_update_ref`. On the card ``c`` is read through a
+    device pointer, never with ``.item()``."""
+    if xb.dim() != 2:
+        raise ValueError(f"weight_update: xb must be (n, d), got {tuple(xb.shape)}")
+    n, d = xb.shape
+    if not 1 <= num_bins <= 32:
+        raise ValueError(f"weight_update: num_bins must be in [1, 32], got {num_bins}")
+    _check("weight_update xb", xb, torch.int32, (n, d))
+    for name, t in (("y", y), ("margin_l", margin_l), ("margin_s", margin_s)):
+        _check(f"weight_update {name}", t, torch.float32, (n,))
+    _check("weight_update a", a, torch.float32, (d, num_bins - 1))
+    args = [xb, y, margin_l, margin_s, a]
+    if isinstance(c, torch.Tensor):
+        if c.dtype != torch.float32 or c.numel() != 1:
+            raise TypeError(f"weight_update: c must be one float32 value, got {c.dtype} {tuple(c.shape)}")
+        c = c.reshape(())
+        args.append(c)
+    if not _route("weight_update", args):
+        return ref.weight_update_ref(xb, y, margin_l, margin_s, a, c, num_bins)
+    dev = xb.device
+    smem = d * num_bins * 8 + WEIGHT_UPDATE_TILE_N * (d | 1) * 4
+    if smem > _MAX_BLOCK_SMEM:
+        raise ValueError(f"weight_update: d={d}, B={num_bins} need {smem} B of shared memory per block")
+    if not isinstance(c, torch.Tensor):
+        c = torch.full((), float(c), dtype=torch.float32, device=dev)
+    m_new = torch.empty((n,), dtype=torch.float32, device=dev)
+    w = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return m_new, w
+    from repro_torch.kernels.build import load_library
+
+    err = load_library().weight_update_launch(
+        *[_ptr(t) for t in (xb, y, margin_l, margin_s, a, c, m_new, w)], n, d, num_bins,
+        WEIGHT_UPDATE_TILE_N, _stream(dev),
+    )
+    _raise_on("weight_update", err)
+    LAUNCHES["weight_update"] += 1
+    return m_new, w
+
+
+__all__ = ["LAUNCHES", "edge_scan", "queue_ingest", "reset_launches", "round_deliver", "weight_update"]

@@ -5,7 +5,10 @@ same thing as its CUDA kernel with ordinary tensor operations; the
 wrappers in :mod:`repro_torch.kernels.ops` call them for CPU tensors,
 and ``chip_smoke.py`` holds each kernel against them on the card.
 ``round_step_ref`` and ``queue_ingest_ref`` are also the engine's
-``round_step_impl="ref"`` path.
+``round_step_impl="ref"`` path; ``margin_delta_oracle`` is the
+stump-by-stump meaning of a model slice, which ``weight_update_ref``
+over :func:`~repro_torch.kernels.weight_update.scatter_model_slice`
+must reproduce.
 """
 
 from __future__ import annotations
@@ -45,6 +48,30 @@ def edge_scan_ref(
     V = (w * w).sum(dim=-1)
     T = wy.sum(dim=-1)
     return hist, W, V, T
+
+
+def weight_update_ref(
+    xb: torch.Tensor,
+    y: torch.Tensor,
+    margin_l: torch.Tensor,
+    margin_s: torch.Tensor,
+    a: torch.Tensor,
+    c,
+    num_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused margin + weight refresh: ``delta = 2 (P @ A) - c`` with
+    ``P[i, (j, t)] = [xb[i, j] > t]`` over the ``B - 1`` cuts,
+    ``margin' = margin_l + delta`` and
+    ``w = exp(clip(-y (margin' - margin_s), -30, 30))``; ``xb (n, d)``
+    int32, ``a (d, B-1)``, ``c`` a float or 0-d tensor. Returns
+    ``(margin' (n,), w (n,))``. Bins at or above ``B - 1`` turn every cut
+    on, bins at or below 0 none."""
+    cuts = torch.arange(num_bins - 1, dtype=xb.dtype, device=xb.device)
+    p = (xb.unsqueeze(-1) > cuts).to(torch.float32)  # (n, d, B-1)
+    delta = 2.0 * torch.einsum("ndc,dc->n", p, a) - c
+    m_new = margin_l + delta
+    w = torch.exp(torch.clamp(-y * (m_new - margin_s), -30.0, 30.0))
+    return m_new, w
 
 
 def round_step_ref(
@@ -115,3 +142,14 @@ def queue_ingest_ref(
         torch.gather(m_src, 1, keep),
         torch.gather(m_slot, 1, keep),
     )
+
+
+def margin_delta_oracle(model, xb: torch.Tensor, t_lo: int, t_hi: int) -> torch.Tensor:
+    """Stump-by-stump margin delta of slots ``[t_lo, t_hi)`` of a
+    ``StumpModel`` on rows ``xb (n, d)``: the model's own semantics, which
+    ``scatter_model_slice`` + kernel K4 must reproduce."""
+    out = torch.zeros((xb.shape[0],), dtype=torch.float32, device=xb.device)
+    for k in range(t_lo, t_hi):
+        h = torch.where(xb[:, model.feat[k]] > model.thr[k], 1.0, -1.0) * model.sign[k]
+        out = out + model.alpha[k] * h
+    return out

@@ -8,7 +8,12 @@
     state: fire decisions exactly, histograms/W/V/margins at 1e-5;
   * ``boosting/batched_sparrow.py::BatchedSparrowWorker`` segment by
     segment (scan, resample with the reference's draws, adopt) from the
-    reference's own ``init_batch`` state, on the kernel route and off it.
+    reference's own ``init_batch`` state, on the kernel route and off it;
+  * ``boosting/baselines.py``: exact greedy with feature/threshold/sign
+    exactly and alpha and the loss trace at 1e-5, GOSS with the
+    reference's rest-pool picks injected;
+  * ``boosting/sampler.py::rejection_sample`` fed the reference's
+    uniforms: the same picks.
 
 Mirrors tests/test_boosting.py; the data is the reference's, handed to
 both packages.
@@ -24,6 +29,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.boosting import baselines as jbase  # noqa: E402
 from repro.boosting import batched_sparrow as jbs  # noqa: E402
 from repro.boosting import sampler as jsampler  # noqa: E402
 from repro.boosting import scanner as jscan  # noqa: E402
@@ -32,6 +38,7 @@ from repro.boosting import stumps as jst  # noqa: E402
 from repro.configs import sparrow as jconfigs  # noqa: E402
 from repro.data import splice as jsplice  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.boosting import baselines as tbase  # noqa: E402
 from repro_torch.boosting import batched_sparrow as tbs  # noqa: E402
 from repro_torch.boosting import sampler as tsampler  # noqa: E402
 from repro_torch.boosting import scanner as tscan  # noqa: E402
@@ -400,6 +407,102 @@ def test_default_uniforms_are_reproducible(data):
     assert torch.equal(a.sample.xb, b.sample.xb)
     assert not torch.equal(a.sample.xb[0], a.sample.xb[1])  # streams differ per worker
     assert a.stream.tolist() == [5, 1005]
+
+
+# ---------------------------------------------------------------------------
+# rejection sampling and the baselines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,n,m", [(3, 2, 400), (4, 50, 64), (5, 257, 33)])
+def test_rejection_sample_same_picks(seed, n, m):
+    """Fed the uniforms behind ``jax.random.categorical``'s Gumbel noise
+    (mode "low": uniform on [tiny, 1)), the port picks the same indices;
+    zero weights are never picked."""
+    rng = np.random.default_rng(seed)
+    w = rng.random(n).astype(np.float32) * 3.0
+    w[rng.random(n) < 0.2] = 0.0
+    w[0] = 1.0
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jsampler.rejection_sample(key, jnp.asarray(w), m))
+    u = jax.random.uniform(key, (m, n), jnp.float32, minval=jnp.finfo(jnp.float32).tiny, maxval=1.0)
+    got = tsampler.rejection_sample(_t(u), _t(w), m)
+    assert got.dtype == torch.int32
+    _equal(want, got)
+    assert (w[got.numpy()] > 0).all()
+    with pytest.raises(ValueError):
+        tsampler.rejection_sample(_t(u)[:, :1], _t(w), m)
+
+
+def test_rejection_sample_unbiased():
+    """Mirrors tests/test_boosting.py::test_rejection_sample_unbiased."""
+    g = torch.Generator().manual_seed(3)
+    u = torch.rand((4000, 2), generator=g).clamp_min(torch.finfo(torch.float32).tiny)
+    idx = tsampler.rejection_sample(u, torch.tensor([3.0, 1.0]), 4000)
+    assert float((idx == 0).float().mean()) == pytest.approx(0.75, abs=0.03)
+
+
+def jax_goss_picks(seed: int):
+    """The reference's rest-pool picks as positions: round r draws with
+    ``sub`` of ``key, sub = split(key)`` from ``PRNGKey(seed)``, and
+    ``choice(sub, rest_pool, replace=False)`` is ``rest_pool`` indexed by
+    ``choice(sub, len(rest_pool), replace=False)``."""
+    keys = []
+
+    def pick(r, pool, k):
+        while len(keys) <= r:
+            prev = keys[-1][0] if keys else jax.random.PRNGKey(seed)
+            keys.append(jax.random.split(prev))
+        return _t(jax.random.choice(keys[r][1], pool, (k,), replace=False))
+
+    return pick
+
+
+def _booster_data(data):
+    xb, y = data
+    txb, ty = convert.dataset_from_numpy(xb, y, CPU)
+    ev_j = lambda m: float(jst.exp_loss(m, jnp.asarray(xb), jnp.asarray(y)))  # noqa: E731
+    ev_t = lambda m: float(tst.exp_loss(m, txb, ty))  # noqa: E731
+    return (jnp.asarray(xb), jnp.asarray(y), ev_j), (txb, ty, ev_t)
+
+
+def _assert_traces_close(jtr, ttr):
+    for f in ("feat", "thr", "count"):
+        _equal(getattr(jtr.model, f), getattr(ttr.model, f))
+    _equal(jtr.model.sign, ttr.model.sign)
+    _close(jtr.model.alpha, ttr.model.alpha)
+    assert ttr.rounds == jtr.rounds
+    np.testing.assert_allclose(ttr.cost, jtr.cost, rtol=1e-12)
+    _close(jtr.metric, ttr.metric)
+
+
+def test_exact_greedy_matches_reference(data):
+    (jx, jy, ev_j), (tx, ty, ev_t) = _booster_data(data)
+    cfg = dict(num_rounds=12, num_bins=8, capacity=16, eval_every=3)
+    jtr = jbase.train_exact_greedy(jx, jy, jbase.BoosterConfig(**cfg), eval_fn=ev_j)
+    ttr = tbase.train_exact_greedy(tx, ty, tbase.BoosterConfig(**cfg), eval_fn=ev_t)
+    _assert_traces_close(jtr, ttr)
+    assert int(ttr.model.count) == 12 and ttr.metric[-1] < 1.0
+    again = tbase.train_adaboost_reference(tx, ty, tbase.BoosterConfig(**cfg))
+    assert torch.equal(again.model.feat, ttr.model.feat) and again.metric == []
+
+
+def test_goss_matches_reference_with_its_picks(data):
+    (jx, jy, ev_j), (tx, ty, ev_t) = _booster_data(data)
+    cfg = dict(num_rounds=10, num_bins=8, capacity=16, eval_every=4, seed=5)
+    jtr = jbase.train_goss(jx, jy, jbase.BoosterConfig(**cfg), eval_fn=ev_j)
+    ttr = tbase.train_goss(tx, ty, tbase.BoosterConfig(**cfg), eval_fn=ev_t, pick=jax_goss_picks(5))
+    _assert_traces_close(jtr, ttr)
+
+
+def test_goss_default_picks_are_seeded(data):
+    _, (tx, ty, ev_t) = _booster_data(data)
+    cfg = tbase.BoosterConfig(num_rounds=6, num_bins=8, capacity=8, eval_every=5, seed=2)
+    a, b = tbase.train_goss(tx, ty, cfg, eval_fn=ev_t), tbase.train_goss(tx, ty, cfg, eval_fn=ev_t)
+    assert torch.equal(a.model.feat, b.model.feat) and a.metric == b.metric
+    assert a.metric[-1] < 1.0
+    for f in dataclasses.fields(jbase.BoosterConfig):
+        assert getattr(jbase.BoosterConfig(), f.name) == getattr(tbase.BoosterConfig(), f.name)
 
 
 # ---------------------------------------------------------------------------

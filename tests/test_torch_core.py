@@ -2,10 +2,11 @@
 exactly, the stopping rule and the effective sample size at 1e-6.
 Mirrors tests/test_core.py.
 
-ESS is held to its invariant ``1 <= n_eff <= len(w)`` over sane weights.
-On weights whose squares underflow float32 both packages break it, in
-different ways (ROADMAP.md queue 3), which is what makes the reference's
-``TestESS::test_bounds`` fail; those inputs are not used here.
+ESS is held to the reference's values over sane weights, and to the
+invariant ``1 <= n_eff <= len(w)`` that the reference's
+``TestESS::test_bounds`` states everywhere, including weights whose
+squares underflow float32, where the reference itself breaks it
+(ROADMAP.md queue 3) and the port rescales.
 """
 
 import numpy as np
@@ -56,6 +57,40 @@ class TestESS:
         got = float(tess.effective_sample_size(torch.from_numpy(w)))
         assert 1.0 - 1e-3 <= got <= n + 1e-3
         _close(jess.effective_sample_size(jnp.asarray(w)), got)
+
+    @pytest.mark.parametrize(
+        "w",
+        [
+            np.array([1e-20], np.float32),
+            np.array([1e-20, 0.0, 3e-21, 1e-22, 0.0], np.float32),
+            np.array([1e-16, 2e-16], np.float32),  # s2 normal but below the 1e-30 guard
+        ],
+        ids=["single", "mixed", "below_guard"],
+    )
+    def test_bounds_where_squares_underflow(self, w):
+        """``1 <= n_eff <= n`` and the exact ratio (in float64) where
+        ``sum w^2`` underflows or falls under the reference's guard."""
+        got = float(tess.effective_sample_size(torch.from_numpy(w)))
+        w64 = w.astype(np.float64)
+        want = w64.sum() ** 2 / (w64 * w64).sum()
+        assert 1.0 <= got <= len(w)
+        assert got == pytest.approx(want, rel=1e-6)
+
+    def test_rescale_leaves_other_rows_bit_identical(self):
+        """Rows with sane weights keep the plain formula's bits; an
+        underflowing row beside them is rescaled."""
+        rng = np.random.default_rng(9)
+        w = rng.random((3, 40)).astype(np.float32)
+        w[1] = np.float32(1e-21) * rng.random(40).astype(np.float32)
+        w[2, :30] = 0.0
+        tw = torch.from_numpy(w)
+        got = tess.effective_sample_size(tw, dim=-1)
+        s1, s2 = tw.sum(dim=-1), (tw * tw).sum(dim=-1)
+        plain = (s1 * s1) / torch.clamp(s2, min=1e-30)
+        assert torch.equal(got[[0, 2]], plain[[0, 2]])
+        assert 1.0 <= float(got[1]) <= 40
+        flat = w[0].copy()
+        assert torch.equal(tess.effective_sample_size(torch.from_numpy(flat)), plain[0])
 
     def test_mask_and_rows(self):
         w = np.random.default_rng(3).random((4, 50)).astype(np.float32)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1 ``edge_scan`` to 1e-5 and bitwise equal to itself on a second
 launch (no float atomics), K2 ``round_step`` and K3 ``queue_ingest``
-bit-exact. Imports no JAX, so it runs on a machine with only PyTorch and
-the CUDA toolkit:
+bit-exact, K4 ``weight_update`` to rtol 1e-4 / atol 1e-5 (the
+reference's own tolerance) and bitwise equal to itself. Imports no JAX,
+so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -109,3 +110,46 @@ def test_cuda_queue_ingest(cuda_device, w, cap, m):
     plain = tref.queue_ingest_ref(*args)
     for a, b in zip(got, plain):
         assert torch.equal(a, b)
+
+
+def _weight_inputs(seed, n, d, num_bins):
+    """Bins that also fall outside [0, B), margins, and (A, c) from
+    ``scatter_model_slice`` of a random 256-stump model."""
+    from repro_torch.boosting.stumps import StumpModel
+
+    rng = np.random.default_rng(seed)
+    xb = rng.integers(-1, num_bins + 1, (n, d), dtype=np.int32)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    ml = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    ms = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    t = 256
+    model = StumpModel(
+        feat=_t(rng.integers(0, d, t, dtype=np.int32)),
+        thr=_t(rng.integers(0, num_bins - 1, t, dtype=np.int32)),
+        sign=_t(np.where(rng.random(t) < 0.5, 1.0, -1.0).astype(np.float32)),
+        alpha=_t(rng.uniform(0.01, 0.3, t).astype(np.float32)),
+        count=torch.tensor(t, dtype=torch.int32),
+    )
+    return xb, y, ml, ms, model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,num_bins", [(180_000, 64, 8), (777, 16, 32), (5, 8, 8)])
+def test_cuda_weight_update(cuda_device, n, d, num_bins):
+    from repro_torch.kernels import scatter_model_slice
+
+    xb, y, ml, ms, model = _weight_inputs(n + d, n, d, num_bins)
+    model = type(model)(*(f.to(cuda_device) for f in model))
+    a, c = scatter_model_slice(model, 0, 256, num_bins, d)
+    a2, c2 = scatter_model_slice(model, 0, 256, num_bins, d)
+    assert torch.equal(a, a2) and torch.equal(c, c2)  # no float atomics in the scatter
+    args = _cuda((xb, y, ml, ms), cuda_device)
+    got = tops.weight_update(*args, a, c, num_bins=num_bins)
+    again = tops.weight_update(*args, a, c, num_bins=num_bins)
+    plain = tref.weight_update_ref(*args, a, c, num_bins)
+    for g, b, p in zip(got, again, plain):
+        assert torch.equal(g, b)  # deterministic
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-5)
+    # c as a Python float takes the same path
+    m_f, _ = tops.weight_update(*args, a, float(c), num_bins=num_bins)
+    torch.testing.assert_close(m_f, plain[0], rtol=1e-4, atol=1e-5)

@@ -309,7 +309,7 @@ def test_whole_slice_matches_reference(splice):
     _assert_close_runs(jres, tres)
     assert tres.messages_evicted == 0
     # on CPU tensors the wrappers take the plain versions: no launches
-    assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0}
+    assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0}
 
 
 def test_sparrow_chain_dense_sparse_control_bit_exact(splice):

@@ -1,5 +1,5 @@
-"""The port's kernels (K1 edge_scan, K2 round_step, K3 queue_ingest) held
-against the JAX reference.
+"""The port's kernels (K1 edge_scan, K2 round_step, K3 queue_ingest, K4
+weight_update with scatter_model_slice) held against the JAX reference.
 
 On the CPU each wrapper in ``repro_torch.kernels.ops`` runs its plain
 PyTorch version; these tests hold that against the reference's Pallas
@@ -7,7 +7,8 @@ kernels (``repro.kernels.ops`` in interpret mode, as
 ``tests/test_kernels.py`` runs them) and against ``repro.kernels.ref``.
 Tolerances: K1 sums floats in another order, so ``allclose`` at
 rtol = atol = 1e-5 (the reference's own kernel tolerance); K2 and K3 are
-comparison and permutation logic, so ``array_equal``.
+comparison and permutation logic, so ``array_equal``; K4 at rtol 1e-4 /
+atol 1e-5, the reference's own tolerance for it.
 
 tests/test_torch_cuda.py holds the CUDA kernels themselves against
 these plain versions on the card.
@@ -22,14 +23,19 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.boosting import stumps as jst  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.weight_update import scatter_model_slice as j_scatter  # noqa: E402
+from repro_torch.boosting.stumps import StumpModel as TStumpModel  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import scatter_model_slice as t_scatter  # noqa: E402
 
 # the reference oracles, compiled once per shape instead of op by op
 _round_step_ref = jax.jit(jref.round_step_ref, static_argnames="eps")
 _queue_ingest_ref = jax.jit(jref.queue_ingest_ref)
 _edge_scan_ref = jax.jit(jref.edge_scan_ref, static_argnames="num_bins")
+_weight_update_ref = jax.jit(jref.weight_update_ref, static_argnames="num_bins")
 
 
 def _t(a):
@@ -317,4 +323,130 @@ def test_launch_counts_only_count_kernel_launches():
     args = _round_inputs(0, 4, 3)
     tops.round_deliver(*[_t(a) for a in args], 0, eps=0.0)
     tops.queue_ingest(*[_t(a) for a in _ingest_inputs(0, 4, 3, 2)])
-    assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0}
+    xb, y, ml, ms, a, c = _weight_inputs(0, 9, 4, 8)
+    tops.weight_update(_t(xb), _t(y), _t(ml), _t(ms), _t(a), _t(c), num_bins=8)
+    assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0}
+
+
+# ---------------------------------------------------------------------------
+# K4 weight_update and scatter_model_slice
+# ---------------------------------------------------------------------------
+
+
+def _weight_inputs(seed, n, d, num_bins, lo=0, hi=None):
+    """Bins in ``[lo, hi)`` (``[0, B)`` by default), labels, margins and
+    a random coefficient table with ``c = 0.3 * sum(A)``, as
+    tests/test_kernels.py::TestWeightUpdateKernel draws them."""
+    rng = np.random.default_rng(seed)
+    xb = rng.integers(lo, num_bins if hi is None else hi, (n, d), dtype=np.int32)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    ml = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    ms = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    a = (rng.standard_normal((d, num_bins - 1)) * 0.1).astype(np.float32)
+    return xb, y, ml, ms, a, np.float32(a.sum() * 0.3)
+
+
+def _weight_close(want, got):
+    for w_, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-4, atol=1e-5)
+
+
+def _stump_models(seed, capacity, d, num_bins, count, repeat_cells=False):
+    """The same ``count``-stump model in both packages; with
+    ``repeat_cells`` every stump lands in one of 3 (feature, threshold)
+    cells, so the scatter sums several coefficients per cell."""
+    rng = np.random.default_rng(seed)
+    live = np.arange(capacity) < count
+    if repeat_cells:
+        cells = rng.integers(0, 3, capacity)
+        feat, thr = (cells % d).astype(np.int32), (cells % (num_bins - 1)).astype(np.int32)
+    else:
+        feat = rng.integers(0, d, capacity).astype(np.int32)
+        thr = rng.integers(0, num_bins - 1, capacity).astype(np.int32)
+    fields = (
+        np.where(live, feat, 0).astype(np.int32),
+        np.where(live, thr, 0).astype(np.int32),
+        np.where(rng.random(capacity) < 0.5, 1.0, -1.0).astype(np.float32),
+        np.where(live, rng.uniform(0.1, 1.0, capacity), 0.0).astype(np.float32),
+        np.int32(count),
+    )
+    return jst.StumpModel(*(jnp.asarray(f) for f in fields)), TStumpModel(*(_t(f) for f in fields))
+
+
+class TestWeightUpdate:
+    """Mirrors tests/test_kernels.py::TestWeightUpdateKernel."""
+
+    @pytest.mark.parametrize("n", [5, 512, 777])
+    @pytest.mark.parametrize("d,num_bins", [(8, 8), (16, 32)])
+    def test_matches_reference(self, n, d, num_bins):
+        """Against ``weight_update_ref`` and the Pallas kernel itself
+        (interpret mode), with n not a multiple of its tile."""
+        xb, y, ml, ms, a, c = _weight_inputs(n + d, n, d, num_bins)
+        got = tops.weight_update(_t(xb), _t(y), _t(ml), _t(ms), _t(a), _t(c), num_bins=num_bins)
+        _weight_close(_weight_update_ref(xb, y, ml, ms, a, c, num_bins=num_bins), got)
+        _weight_close(
+            jops.weight_update(xb, y, ml, ms, a, c, num_bins=num_bins, tile_n=256, interpret=True), got
+        )
+
+    @pytest.mark.parametrize("repeat_cells", [False, True], ids=["distinct_cells", "repeated_cells"])
+    def test_scatter_model_slice(self, repeat_cells):
+        """``(A, c)`` equal the reference's on the same model, and K4 on
+        the slice from zero margins is the stump-by-stump margin delta
+        (the reference's ``margin_delta_oracle`` and the port's)."""
+        d, num_bins, n, t_lo, t_hi = 6, 8, 64, 3, 10
+        jm, tm = _stump_models(7, 16, d, num_bins, 10, repeat_cells)
+        ja, jc = j_scatter(jm, t_lo, t_hi, num_bins, d)
+        ta, tc = t_scatter(tm, t_lo, t_hi, num_bins, d)
+        if repeat_cells:  # several coefficients per cell: summed in another order
+            np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        np.testing.assert_allclose(float(tc), float(jc), rtol=1e-6)
+        # t_lo / t_hi as 0-d tensors: the same slice
+        ta2, tc2 = t_scatter(tm, torch.tensor(t_lo), torch.tensor(t_hi), num_bins, d)
+        assert torch.equal(ta, ta2) and torch.equal(tc, tc2)
+        xb = np.random.default_rng(8).integers(0, num_bins, (n, d), dtype=np.int32)
+        zeros = torch.zeros(n)
+        m_new, _ = tops.weight_update(_t(xb), torch.ones(n), zeros, zeros, ta, tc, num_bins=num_bins)
+        want = jref.margin_delta_oracle(jm, jnp.asarray(xb), t_lo, t_hi)
+        np.testing.assert_allclose(m_new.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+        ours = tref.margin_delta_oracle(tm, _t(xb), t_lo, t_hi)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+    def test_weight_clipping(self):
+        """Extreme margins must not produce inf/nan; ``c`` as a float."""
+        xb = torch.zeros((4, 2), dtype=torch.int32)
+        y = torch.tensor([1.0, -1.0, 1.0, -1.0])
+        ml = torch.tensor([100.0, -100.0, 0.0, 0.0])
+        m_new, w = tops.weight_update(xb, y, ml, torch.zeros(4), torch.zeros((2, 7)), 0.0, num_bins=8)
+        assert torch.isfinite(w).all()
+        np.testing.assert_allclose(w.numpy(), np.exp([-30.0, -30.0, 0.0, 0.0]), rtol=1e-6)
+
+    def test_out_of_range_bins(self):
+        """Bins at or above B-1 turn every cut on, bins at or below 0
+        none: the reference's semantics, on both sides of the range."""
+        n, d, num_bins = 300, 8, 8
+        xb, y, ml, ms, a, c = _weight_inputs(11, n, d, num_bins, lo=-3, hi=num_bins + 4)
+        got = tops.weight_update(_t(xb), _t(y), _t(ml), _t(ms), _t(a), _t(c), num_bins=num_bins)
+        _weight_close(_weight_update_ref(xb, y, ml, ms, a, c, num_bins=num_bins), got)
+        clamped = np.clip(xb, 0, num_bins - 1)
+        same = tops.weight_update(_t(clamped), _t(y), _t(ml), _t(ms), _t(a), _t(c), num_bins=num_bins)
+        for g, s in zip(got, same):
+            assert torch.equal(g, s)
+
+    def test_rejects_bad_inputs(self):
+        xb, y, ml, ms, a, c = (_t(v) for v in _weight_inputs(0, 10, 4, 8))
+        with pytest.raises(TypeError):
+            tops.weight_update(xb.float(), y, ml, ms, a, c, num_bins=8)
+        with pytest.raises(TypeError):
+            tops.weight_update(xb, y.double(), ml, ms, a, c, num_bins=8)
+        with pytest.raises(TypeError):
+            tops.weight_update(xb, y, ml, ms, a, torch.tensor([1, 2]), num_bins=8)
+        with pytest.raises(ValueError):
+            tops.weight_update(xb, y, ml, ms, a[:, :3], c, num_bins=8)
+        with pytest.raises(ValueError):
+            tops.weight_update(xb, y[:5], ml, ms, a, c, num_bins=8)
+        with pytest.raises(ValueError):
+            tops.weight_update(xb[0], y, ml, ms, a, c, num_bins=8)
+        with pytest.raises(ValueError):
+            tops.weight_update(xb, y, ml, ms, torch.zeros((4, 32)), c, num_bins=33)
