@@ -10,12 +10,15 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
 
   device     the card, its name and power limit (nvidia-smi);
   build      nvcc builds the kernel library from ``src/repro_torch/kernels/csrc``;
-  kernels    K1 edge_scan, K2 round_step, K3 queue_ingest against their
-             plain versions at the main path's shapes and at large W, and
-             K4 weight_update (A, c from scatter_model_slice of a random
-             256-stump model) at a full disk refresh (n=180 000, d=64, B=8)
-             and two ragged shapes, with times (CUDA events, median of 25
-             samples of 20 calls);
+  kernels    the launch floor (a one-element fill); K1 edge_scan, K2
+             round_step, K3 queue_ingest against their plain versions at the
+             main path's shapes and at large W, K1 also at W=1 (n=2048 and
+             n=180 000), K3 also on edge cases (+-0.0, +-inf, duplicates,
+             due=-1, C+m > 64, C=1, m > C); K4 weight_update (A, c from
+             scatter_model_slice of a random 256-stump model) at a full
+             disk refresh (n=180 000, d=64, B=8) and two ragged shapes;
+             times by CUDA events (median of 25 samples of 20 calls) and by
+             the profiler's device records, K1's beside index_add_'s;
   small_ref  a small run of the whole slice on the card (kernels) against
              the same run on the CPU (plain versions);
   main       the paper's configuration (configs/sparrow.py: n=200 000,
@@ -34,8 +37,11 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
   sim_main   the event simulator at the paper's configuration (W=10,
              worker 9 at speed 0.1) for SIM_EVENTS events, one K1 launch
              per scan segment;
-  baselines  exact greedy and GOSS (25 rounds each) on the training split,
-             and the bulk-synchronous baseline for 20 rounds.
+  baselines  exact greedy and GOSS (25 rounds each, histograms through K1)
+             on the training split, each twice with bitwise-equal models
+             and test losses, and the bulk-synchronous baseline for 20
+             rounds. K1's launch count in the kernels line sums main,
+             sim_main and baselines.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -102,6 +108,9 @@ def main() -> int:
     path, compile_s = build.build()
     build.load_library()
     log(f"phase build ok seconds={time.perf_counter() - t0:.2f} nvcc_seconds={compile_s:.2f} lib={path.name}")
+    for line in (path.parent / build.PTXAS_LOG).read_text().splitlines():
+        if line.startswith("==") or "Used" in line or "spill" in line:
+            log(f"phase build ptxas {line.strip()}")
 
     # --------------------------------------------------------------- kernels
     g = torch.Generator(device=dev)
@@ -156,6 +165,12 @@ def main() -> int:
 
     records = {}
 
+    # the launch floor: device time of the smallest kernel PyTorch launches
+    one = torch.empty((1,), device=dev)
+    floor_dev = device_ms(lambda: one.fill_(1.0))
+    floor_ms = time_ms(lambda: one.fill_(1.0))
+    log(f"phase kernels launch_floor fill_1_element device_ms={floor_dev} ms={floor_ms:.5f}")
+
     def record(name, source, replaces, err, main_shape, ms, plain_ms, bnd, library_ms, dev_ms):
         rec = records.setdefault(name, {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -166,11 +181,26 @@ def main() -> int:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
                        library_ms=library_ms, device_ms=dev_ms)
 
-    # K1 edge_scan
-    for nw, n, d, nb in [(10, 2048, 64, 8), (256, 2048, 64, 8)]:
+    # K1 edge_scan: the engine (W=10), large W, the event simulator's scan
+    # segments (W=1) and exact greedy over the training split (W=1, n=180 000)
+    for nw, n, d, nb in [(10, 2048, 64, 8), (256, 2048, 64, 8), (1, 2048, 64, 8), (1, 180_000, 64, 8)]:
         xb = torch.randint(0, nb, (nw, n, d), generator=g, device=dev, dtype=torch.int32)
         w = torch.rand((nw, n), generator=g, device=dev) + 0.05
         y = torch.where(torch.rand((nw, n), generator=g, device=dev) < 0.5, 1.0, -1.0)
+        if n >= 100_000:
+            # how far each version's float32 sums of these weights are from
+            # exact (float64) ones; then weights in multiples of 1/64, whose
+            # float32 sums are exact in any order, for the 1e-5 check below
+            exact = (torch.where(xb.unsqueeze(-1) == torch.arange(nb, device=dev, dtype=torch.int32),
+                                 (w * y).double()[..., None, None], 0.0).sum(dim=-3),
+                     w.double().abs().sum(-1), (w.double() ** 2).sum(-1), (w * y).double().sum(-1))
+            f32 = [ops.edge_scan(xb, w * y, w, num_bins=nb), ref.edge_scan_ref(xb, w * y, w, nb)]
+            rel = [max(float(((a.double() - b) / b.abs().clamp(min=1.0)).abs().max()) for a, b in zip(out, exact))
+                   for out in f32]
+            log(f"phase kernels K1 edge_scan W={nw} n={n} float32 weights: max error relative to the float64 "
+                f"sums kernel={rel[0]:.3g} plain={rel[1]:.3g}")
+            del exact, f32
+            w = torch.randint(1, 65, (nw, n), generator=g, device=dev).float() / 64
         wy = w * y
         got = ops.edge_scan(xb, wy, w, num_bins=nb)
         again = ops.edge_scan(xb, wy, w, num_bins=nb)
@@ -190,14 +220,20 @@ def main() -> int:
         ms = time_ms(lambda: ops.edge_scan(xb, wy, w, num_bins=nb))
         plain_ms = time_ms(lambda: ref.edge_scan_ref(xb, wy, w, nb))
         lib_ms = time_ms(lambda: buf.index_add_(0, flat, src))
+        lib_dev_ms = device_ms(lambda: buf.index_add_(0, flat, src))
         dev_ms = device_ms(lambda: ops.edge_scan(xb, wy, w, num_bins=nb))
         nbytes = xb.numel() * 4 + 2 * nw * n * 4 + nw * d * nb * 4 + 3 * nw * 4
         bnd = bound(nbytes, nw * n * d * nb + 3 * nw * n)
-        log(f"phase kernels K1 edge_scan W={nw} n={n} d={d} B={nb} deterministic={det} "
-            f"max_abs_err={err:.3g} ms={ms:.5f} device_ms={dev_ms} plain_ms={plain_ms:.5f} "
-            f"index_add_ms={lib_ms:.5f} bound_ms={bnd[0]:.5f} ({bnd[1]})")
+        plan = ops.edge_scan_plan(nw, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        log(f"phase kernels K1 edge_scan W={nw} n={n} d={d} B={nb} plan(tile_rows,tiles,group)={plan} "
+            f"deterministic={det} max_abs_err={err:.3g} ms={ms:.5f} device_ms={dev_ms} "
+            f"plain_ms={plain_ms:.5f} index_add_ms={lib_ms:.5f} index_add_device_ms={lib_dev_ms} "
+            f"bound_ms={bnd[0]:.5f} ({bnd[1]})")
         record("edge_scan", "src/repro_torch/kernels/csrc/edge_scan.cu",
                "src/repro/kernels/edge_scan.py:60", err, nw == 10, ms, plain_ms, bnd, lib_ms, dev_ms)
+        if nw == 10:
+            records["edge_scan"]["library_device_ms"] = lib_dev_ms
+        del xb, w, y, wy, flat, src, buf, got, again, plain
 
     # K2 round_step and K3 queue_ingest
     for nw in (10, 4096):
@@ -247,6 +283,33 @@ def main() -> int:
             record("queue_ingest", "src/repro_torch/kernels/csrc/queue_ingest.cu",
                    "src/repro/kernels/round_step.py:155", 0.0, (nw, m) == (10, 1), ms, plain_ms,
                    bnd, None, dev_ms)
+
+    # K3 edge cases: C+m > 64, C = 1, m > C, +-0.0 and +-inf certificates,
+    # duplicate (cert, src, due) entries, due = -1 padding, all-+inf queues
+    pool = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), -1.0, -0.5, -0.25], device=dev)
+
+    def edge_leaves(nw, k):
+        return (pool[torch.randint(0, len(pool), (nw, k), generator=g, device=dev)],
+                torch.randint(-1, 2, (nw, k), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(-1, 3, (nw, k), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 2, (nw, k), generator=g, device=dev, dtype=torch.int32))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    k3_cases = 0
+    for nw, cap, m in [(10, 64, 1), (4096, 64, 8), (5, 100, 40), (9, 1, 3), (6, 4, 12), (3, 3500, 20)]:
+        for all_inf in (False, True):
+            iargs = edge_leaves(nw, cap) + edge_leaves(nw, m)
+            if all_inf:
+                iargs = (torch.full_like(iargs[0], float("inf")),) + iargs[1:]
+            got = ops.queue_ingest(*iargs)
+            plain = ref.queue_ingest_ref(*iargs)
+            if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, plain)):
+                raise AssertionError(f"K3 edge case W={nw} C={cap} m={m} all_inf={all_inf}: "
+                                     "differs from queue_ingest_ref")
+            k3_cases += 1
+    log(f"phase kernels K3 queue_ingest edge_cases={k3_cases} equal=True")
 
     # K4 weight_update, with (A, c) from scatter_model_slice
     from repro_torch.boosting.stumps import StumpModel
@@ -382,6 +445,7 @@ def main() -> int:
         if launches[name] < res.rounds:
             raise AssertionError(f"main: {name} launched {launches[name]} times in {res.rounds} rounds")
         records[name]["launches"] = launches[name]
+    records["edge_scan"]["launches_main"] = launches["edge_scan"]
 
     # --------------------------------------------------------------- profile
     # where a round's time goes: device time by kernel over a short run
@@ -526,17 +590,35 @@ def main() -> int:
     # ------------------------------------------------------------- baselines
     from repro_torch.boosting.baselines import BoosterConfig, train_exact_greedy, train_goss
 
+    # exact greedy and GOSS histogram through K1 (W=1): each runs twice and
+    # must give the same model and test losses bit for bit
     bcfg = BoosterConfig(num_rounds=25, num_bins=nb, eval_every=24)
+    torch.cuda.synchronize()
+    ops.reset_launches()
     for name, fn in (("exact_greedy", train_exact_greedy), ("goss", train_goss)):
-        t0 = time.perf_counter()
-        tr = fn(xtr, ytr, bcfg, eval_fn=lambda m: float(exp_loss(m, xte, yte)))
-        torch.cuda.synchronize()
-        bwall = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tr = fn(xtr, ytr, bcfg, eval_fn=lambda m: float(exp_loss(m, xte, yte)))
+            torch.cuda.synchronize()
+            runs.append((tr, time.perf_counter() - t0))
+        (tr, bwall), (tr2, bwall2) = runs
+        same = tr.metric == tr2.metric and all(torch.equal(a, b) for a, b in zip(tr.model, tr2.model))
         berr = float(error_rate(tr.model, xte, yte))
-        log(f"phase baselines {name} rounds={bcfg.num_rounds} wall_s={bwall:.3f} "
-            f"cost_units={tr.cost[-1]:.6g} test_exp_loss={tr.metric[-1]:.4f} test_error={berr:.4f}")
+        log(f"phase baselines {name} rounds={bcfg.num_rounds} wall_s={bwall:.3f} wall_s_again={bwall2:.3f} "
+            f"cost_units={tr.cost[-1]:.6g} test_exp_loss={tr.metric[-1]!r} test_error={berr:.4f} "
+            f"bitwise_repeat={same}")
+        if not same:
+            raise AssertionError(f"baselines: {name} differs between two runs: losses {tr.metric} vs {tr2.metric}")
         if not (tr.metric[-1] < 1.0 and berr < minority):
             raise AssertionError(f"baselines: {name} test loss {tr.metric[-1]}, error {berr}")
+    torch.cuda.synchronize()
+    base_launches = dict(ops.LAUNCHES)
+    log(f"phase baselines launches={json.dumps(base_launches)}")
+    if base_launches["edge_scan"] < 4 * bcfg.num_rounds:
+        raise AssertionError(f"baselines: {base_launches['edge_scan']} K1 launches in 4 x {bcfg.num_rounds} rounds")
+    records["edge_scan"]["launches_baselines"] = base_launches["edge_scan"]
+    records["edge_scan"]["launches"] += sim_launches["edge_scan"] + base_launches["edge_scan"]
     t0 = time.perf_counter()
     bsp = run_bsp_baseline(sim_worker, specs, SimulatorConfig(n_workers=cfg.n_workers, eps=0.0, seed=SEED),
                            rounds=20)

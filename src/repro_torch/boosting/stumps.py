@@ -7,12 +7,14 @@ Every function here also takes a leading worker axis: a model with
 ``feat (W, T)`` and ``count (W,)`` goes with rows ``xb (W, n, d)``.
 
 One ``(features x bins)`` weighted histogram gives the edges of every
-candidate stump at once; kernel K1 (:func:`repro_torch.kernels.ops.edge_scan`)
-computes it on the card, :func:`edge_histogram` is the plain scatter-add.
+candidate stump at once: :func:`edge_histogram` computes it with kernel K1
+(:func:`repro_torch.kernels.ops.edge_scan`) on the card, deterministic,
+and with the plain scatter-add :func:`edge_histogram_plain` on the CPU.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -116,9 +118,29 @@ def model_payload_bytes(model: StumpModel) -> int:
 
 
 def edge_histogram(xb: torch.Tensor, wy: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """Scatter-add ``wy`` into per-(feature, bin) cells:
+    """Per-(feature, bin) sums of ``wy``:
     ``hist[..., j, b] = sum_{i: xb[..., i, j] = b} wy[..., i]``, float32
-    ``(..., d, B)``. Bins must lie in ``[0, B)``."""
+    ``(..., d, B)``. Bins must lie in ``[0, B)``.
+
+    On a CUDA tensor this is one launch of kernel K1 over the
+    ``(rows, n, d)`` view, its scalars dropped: no float atomics, so the
+    baselines and the scanner's ``use_kernel=False`` path give the same
+    bits on every run. On a CPU tensor it is :func:`edge_histogram_plain`."""
+    if xb.device.type == "cpu":
+        return edge_histogram_plain(xb, wy, num_bins)
+    from repro_torch.kernels import ops as kops
+
+    *lead, n, d = xb.shape
+    rows = math.prod(lead)
+    xb3 = xb.reshape(rows, n, d).to(torch.int32).contiguous()
+    wy2 = wy.reshape(rows, n).to(torch.float32).contiguous()
+    hist, _, _, _ = kops.edge_scan(xb3, wy2, wy2, num_bins=num_bins)
+    return hist.reshape(*lead, d, num_bins)
+
+
+def edge_histogram_plain(xb: torch.Tensor, wy: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """:func:`edge_histogram` as a plain scatter-add (``index_add_``, float
+    atomics on a card); bins must lie in ``[0, B)``."""
     *lead, n, d = xb.shape
     rows = 1
     for s in lead:

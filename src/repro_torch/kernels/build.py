@@ -29,7 +29,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("edge_scan.cu", "round_step.cu", "queue_ingest.cu", "weight_update.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+FLAGS = (ARCH, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+#: what ptxas said of each kernel (registers, shared memory, spills), kept
+#: beside the library
+PTXAS_LOG = "ptxas.txt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,9 +41,9 @@ _F = ctypes.c_float
 #: C entry points and their argument types (every pointer and the
 #: stream as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "edge_scan_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "edge_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
     "round_step_launch": [_P] * 8 + [_I, _F] + [_P] * 8 + [_I, _I, _P],
-    "queue_ingest_launch": [_P] * 12 + [_I] * 4 + [_P],
+    "queue_ingest_launch": [_P] * 12 + [_I] * 5 + [_P],
     "weight_update_launch": [_P] * 8 + [_I] * 4 + [_P],
 }
 
@@ -91,13 +94,15 @@ def build() -> tuple[Path, float]:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
             objs.append(str(obj))
-        failed = []
+        failed, log = [], []
         for name, p in procs:
             out, _ = p.communicate()
+            log.append(f"== {name}\n{out}")
             if p.returncode != 0:
                 failed.append(f"{name}:\n{out}")
         if failed:
             raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        (lib.parent / PTXAS_LOG).write_text("\n".join(log))
         staged = Path(tmp) / lib.name
         link = subprocess.run(
             [nvcc, ARCH, "-shared", "-o", str(staged), *objs],

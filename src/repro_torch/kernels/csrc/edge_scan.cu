@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/edge_scan.py::edge_scan
 // (body _edge_scan_kernel), which the JAX scanner launches once per worker
-// under vmap. Here the worker axis is a grid axis: one launch per round
-// scans the current chunk of all W workers.
+// under vmap. Here the worker axis is a grid axis: one launch scans the
+// current chunk of all W workers.
 //
 //   hist[w, j, b] = sum_i wy[w, i] * [xb[w, i, j] == b]
 //   scal[0, w] = sum_i |w[w, i]|,  scal[1, w] = sum_i w^2,  scal[2, w] = sum_i wy
@@ -11,157 +11,330 @@
 // What bounds it on an H100: bytes. Each xb element (4 B) feeds B predicated
 // adds, so at B = 8 the kernel does 2 operations per byte read, far below the
 // card's ~20 fp32 operations per byte of HBM bandwidth. The work is reading
-// xb once, coalesced.
+// xb once, coalesced, with enough bytes in flight to cover HBM latency.
 //
 // Design:
-//   * grid (row tiles, W); a block of 256 threads is laid out (features x
-//     row groups), so the 32 lanes of a warp read 32 neighbouring xb[i, j]
-//     of one row: one 128-byte transaction per warp per row;
-//   * each thread keeps its B bin sums in registers and adds wy with a
-//     predicated add per bin (the one-hot idea of the TPU kernel, without a
-//     matrix unit); bins outside [0, B) add nothing;
-//   * no float atomics anywhere: the row groups are summed in a fixed order
-//     through shared memory, the tile's partial goes to scratch, and a second
-//     launch sums the tiles in a fixed order. The result is bitwise the same
-//     on every launch with the same inputs, which the engine's
-//     "sparse == dense" bit-exactness check on the card relies on.
+//   * one launch; the work unit is (row tile, worker), grid (tiles, W). The
+//     wrapper (kernels/ops.py::edge_scan_plan) sizes the tiles from W, n and
+//     the SM count so that small W (W = 10 or 1 at n = 2048) fills the card
+//     too;
+//   * a block of 256 threads is laid out (row lanes x feature groups). With
+//     VEC = 4 each thread loads an int4, four neighbouring features of one
+//     row; 16 threads cover a row of d = 64, so a warp reads two whole rows
+//     per load. Rows go in batches, all of a batch loaded before any is
+//     added: eight rows on short tiles, and where a row lane has more than
+//     two batches, four rows with the next batch loading while this one is
+//     added (measured faster there, slower on short tiles). VEC = 1 (one int
+//     per load) takes the ragged cases: d not a multiple of 4, an xb pointer
+//     not 16-byte aligned, and B > 8;
+//   * each thread adds into its own B-bin histograms in shared memory, laid
+//     out so that a warp's 32 lanes hit 32 banks: a load, an add and a store
+//     per element, where a one-hot over B bins in registers costs about 3B
+//     instructions (measured slower on the card at B = 8);
+//   * bins outside [0, B) add nothing (a predicated add);
+//   * W, V and T come out of the same pass: the first feature group of each
+//     row lane also loads w for its rows;
+//   * no float atomics: a block sums its row lanes in a fixed order through
+//     shared memory (threads over feature groups, so that the reads do not
+//     pile onto one bank) and its scalars by a fixed-shape shuffle tree. With one
+//     tile per worker it writes the result; else it writes its tile's
+//     partial to scratch, and a ticket (an integer atomicAdd after
+//     __threadfence) finds the last block of its group of tiles, which sums
+//     the group's partials in tile order, 32 loads in flight per thread. Many
+//     tiles take a second level the same way: the last group sums the groups
+//     in order. The last block resets its counter, so the zeroed counters are
+//     reused by the next launch. The result is bitwise the same on every
+//     launch with the same inputs and plan, which the engine's "sparse ==
+//     dense" bit-exactness check on the card relies on. (Thread-block
+//     clusters summing through distributed shared memory measured slower
+//     here: their barriers cost more than the ticket.)
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSumBatch = 16;
+// rows per batch of the plain loop (all loaded, then all added) and of the
+// pipelined one (the next batch loads while this one is added)
+constexpr int kRowsPlain = 8;
+constexpr int kRowsPiped = 4;
 
-template <int BP>
-__global__ void edge_scan_tiles(const int* __restrict__ xb, const float* __restrict__ wy,
-                                const float* __restrict__ w, int n, int d, int B, int tile_n,
-                                float* __restrict__ part_hist, float* __restrict__ part_scal) {
-  extern __shared__ float smem[];
+// Sum `count` rows of `cells` floats (row r at src + r * cells) in row order,
+// two cells per thread and kSumBatch rows at a time in flight. Cells below
+// `hc` go to out_h[c], the three scalars to out_s[(c - hc) * s_stride]. The
+// rows were written by other blocks of this launch: read them past L1.
+__device__ void sum_partials(const float* src, int count, int cells, int hc, float* out_h,
+                             float* out_s, int s_stride) {
+  for (int c0 = threadIdx.x; c0 < cells; c0 += 2 * kThreads) {
+    const int c1 = c0 + kThreads;
+    const bool two = c1 < cells;
+    float s0 = 0.f, s1 = 0.f;
+    for (int r0 = 0; r0 < count; r0 += kSumBatch) {
+      float a[kSumBatch], b[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        const size_t off = (size_t)(r0 + u) * cells;
+        a[u] = r0 + u < count ? __ldcg(src + off + c0) : 0.f;
+        b[u] = two && r0 + u < count ? __ldcg(src + off + c1) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        if (r0 + u < count) {
+          s0 += a[u];
+          s1 += b[u];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int c = k ? c1 : c0;
+      const float s = k ? s1 : s0;
+      if (c >= cells) break;
+      if (c < hc) {
+        out_h[c] = s;
+      } else {
+        out_s[(size_t)(c - hc) * s_stride] = s;
+      }
+    }
+  }
+}
+
+// Every writer fences, then thread 0 takes a ticket; true in every thread of
+// the block that arrived last among `members`. That block resets the counter.
+__device__ bool last_to_arrive(int* counter, int members, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int prev = atomicAdd(counter, 1);
+    const bool last = prev == members - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+template <int VEC>
+struct Bins;
+template <>
+struct Bins<4> {
+  int v[4];
+  __device__ __forceinline__ void load(const int* p) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+};
+template <>
+struct Bins<1> {
+  int v[1];
+  __device__ __forceinline__ void load(const int* p) { v[0] = __ldg(p); }
+};
+
+// One batch: rows i, i + R, ... (ROWS of them) of one feature group, with
+// their wy and, for the scalars, their w; rows at or past row1 get bin -1
+// and weight 0, so they are neither loaded nor added.
+template <int VEC, int ROWS>
+struct Batch {
+  Bins<VEC> x[ROWS];
+  float wy[ROWS];
+  float w[ROWS];
+
+  __device__ __forceinline__ void load(const int* col, const float* wyw, const float* ww, int i,
+                                       int R, int row1, int d, bool scalars) {
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+      const int r = i + u * R;
+      if (r < row1) {
+        x[u].load(col + (size_t)r * d);
+        wy[u] = __ldg(wyw + r);
+        w[u] = scalars ? __ldg(ww + r) : 0.f;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) x[u].v[v] = -1;
+        wy[u] = 0.f;
+        w[u] = 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void add(float* mine, int B, float (&sc)[3]) const {
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const int b = x[u].v[v];
+        if ((unsigned)b < (unsigned)B) mine[(v * B + b) * kThreads] += wy[u];
+      }
+      sc[0] += fabsf(w[u]);
+      sc[1] += __fmul_rn(w[u], w[u]);
+      sc[2] += wy[u];
+    }
+  }
+};
+
+template <int VEC, bool PIPED>
+__global__ void __launch_bounds__(kThreads)
+    edge_scan_kernel(const int* __restrict__ xb, const float* __restrict__ wy,
+                     const float* __restrict__ w, int W, int n, int d, int B, int tile_rows,
+                     int group, float* __restrict__ part1, float* __restrict__ part2,
+                     int* __restrict__ counters, float* __restrict__ hist,
+                     float* __restrict__ scal) {
+  // VEC * B * kThreads floats: thread t's sum of feature slot v, bin b at
+  // hs[(v * B + b) * kThreads + t], so the 32 lanes of a warp always hit 32
+  // different banks
+  extern __shared__ float hs[];
+  __shared__ float warp_sums[3][kWarps];
+  __shared__ int flag;
   const int tile = blockIdx.x;
   const int tiles = gridDim.x;
   const int wk = blockIdx.y;
-  const int row0 = tile * tile_n;
-  const int row1 = min(row0 + tile_n, n);
+  const int tid = threadIdx.x;
+  const int row0 = tile * tile_rows;
+  const int row1 = min(row0 + tile_rows, n);
+  const int hc = d * B;
+  const int cells = hc + 3;
   const int* xbw = xb + (size_t)wk * n * d;
   const float* wyw = wy + (size_t)wk * n;
   const float* ww = w + (size_t)wk * n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int nx = blockDim.x, ny = blockDim.y;
-  const int tid = ty * nx + tx;
 
-  for (int j0 = 0; j0 < d; j0 += nx) {
-    const int j = j0 + tx;
-    float acc[BP];
+  // where this block's sums go: the result (one tile) or its tile's partial
+  float* out_h = hist + (size_t)wk * hc;
+  float* out_s = scal + wk;
+  int s_stride = W;
+  if (tiles > 1) {
+    out_h = part1 + ((size_t)wk * tiles + tile) * cells;
+    out_s = out_h + hc;
+    s_stride = 1;
+  }
+
+  const int Q = (d + VEC - 1) / VEC;  // feature groups per row
+  const int FQ = min(Q, kThreads);    // groups per pass over the tile
+  const int R = kThreads / FQ;        // row lanes
+  const int fq_t = tid % FQ;
+  const int rl = tid / FQ;
+  const int slots = VEC * B;
+  float sc[3] = {0.f, 0.f, 0.f};  // |w|, w^2, wy of this thread's rows (first group only)
+
+  for (int q0 = 0; q0 < Q; q0 += FQ) {
+    const int fq = q0 + fq_t;
+    float* mine = hs + tid;
+    for (int k = 0; k < slots; ++k) mine[k * kThreads] = 0.f;
+    if (rl < R && fq < Q) {
+      const int* col = xbw + fq * VEC;
+      const bool scalars = fq == 0;
+      float lane_sc[3] = {0.f, 0.f, 0.f};
+      if (PIPED) {
+        Batch<VEC, kRowsPiped> cur, next;
+        int i = row0 + rl;
+        cur.load(col, wyw, ww, i, R, row1, d, scalars);
+        for (; i < row1; i += kRowsPiped * R) {
+          next.load(col, wyw, ww, i + kRowsPiped * R, R, row1, d, scalars);
+          cur.add(mine, B, lane_sc);
+          cur = next;
+        }
+      } else {
+        for (int i = row0 + rl; i < row1; i += kRowsPlain * R) {
+          Batch<VEC, kRowsPlain> batch;
+          batch.load(col, wyw, ww, i, R, row1, d, scalars);
+          batch.add(mine, B, lane_sc);
+        }
+      }
+      if (scalars) {
 #pragma unroll
-    for (int b = 0; b < BP; ++b) acc[b] = 0.f;
-    if (j < d) {
-      for (int i = row0 + ty; i < row1; i += ny) {
-        const int bin = xbw[(size_t)i * d + j];
-        const float v = wyw[i];
-#pragma unroll
-        for (int b = 0; b < BP; ++b) acc[b] += (bin == b) ? v : 0.f;
+        for (int k = 0; k < 3; ++k) sc[k] = lane_sc[k];
       }
     }
-#pragma unroll
-    for (int b = 0; b < BP; ++b) smem[tid * BP + b] = acc[b];
     __syncthreads();
-    if (ty == 0 && j < d) {
-      float* out = part_hist + (((size_t)wk * tiles + tile) * d + j) * B;
-      for (int b = 0; b < B; ++b) {
+    // row lanes are summed in lane order. Neighbouring threads take
+    // neighbouring feature groups of one (slot, bin), so a warp's reads
+    // spread over the banks (with (feature, bin) neighbours they all hit one)
+    const int pass_cells = FQ * slots;
+    for (int c = tid; c < pass_cells; c += kThreads) {
+      const int fql = c % FQ;
+      const int vb = c / FQ;  // v * B + b
+      const int j = (q0 + fql) * VEC + vb / B;
+      if (j < d) {
+        const float* r = hs + vb * kThreads + fql;
         float s = 0.f;
-        for (int k = 0; k < ny; ++k) s += smem[(k * nx + tx) * BP + b];
-        out[b] = s;
+        for (int k = 0; k < R; ++k) s += r[k * FQ];
+        out_h[j * B + vb % B] = s;
       }
     }
     __syncthreads();
   }
 
-  // stopping-rule scalars: one row per thread, then a fixed-shape tree
-  float sw = 0.f, sv = 0.f, st = 0.f;
-  for (int i = row0 + tid; i < row1; i += kThreads) {
-    const float wi = ww[i];
-    sw += fabsf(wi);
-    sv += __fmul_rn(wi, wi);
-    st += wyw[i];
+  // the block's scalars: a fixed-shape shuffle tree per warp, then warps in order
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sc[k] += __shfl_xor_sync(0xffffffffu, sc[k], off);
+    if (tid % 32 == 0) warp_sums[k][tid / 32] = sc[k];
   }
-  float* s0 = smem;
-  float* s1 = smem + kThreads;
-  float* s2 = smem + 2 * kThreads;
-  s0[tid] = sw;
-  s1[tid] = sv;
-  s2[tid] = st;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      s0[tid] += s0[tid + s];
-      s1[tid] += s1[tid + s];
-      s2[tid] += s2[tid + s];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    float* out = part_scal + ((size_t)wk * tiles + tile) * 3;
-    out[0] = s0[0];
-    out[1] = s1[0];
-    out[2] = s2[0];
-  }
-}
-
-__global__ void edge_scan_finish(const float* __restrict__ part_hist,
-                                 const float* __restrict__ part_scal, int tiles, int cells,
-                                 int W, float* __restrict__ hist, float* __restrict__ scal) {
-  const int wk = blockIdx.x;
-  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-    const float* p = part_hist + (size_t)wk * tiles * cells + c;
+  if (tid < 3) {
     float s = 0.f;
-    for (int t = 0; t < tiles; ++t) s += p[(size_t)t * cells];
-    hist[(size_t)wk * cells + c] = s;
+    for (int k = 0; k < kWarps; ++k) s += warp_sums[tid][k];
+    out_s[(size_t)tid * s_stride] = s;
   }
-  if (threadIdx.x < 3) {
-    const float* p = part_scal + (size_t)wk * tiles * 3 + threadIdx.x;
-    float s = 0.f;
-    for (int t = 0; t < tiles; ++t) s += p[(size_t)t * 3];
-    scal[(size_t)threadIdx.x * W + wk] = s;
-  }
-}
+  if (tiles == 1) return;
 
-template <int BP>
-cudaError_t launch_tiles(dim3 grid, dim3 block, cudaStream_t stream, const int* xb,
-                         const float* wy, const float* w, int n, int d, int B, int tile_n,
-                         float* part_hist, float* part_scal) {
-  size_t words = (size_t)kThreads * BP;
-  if (words < 3 * (size_t)kThreads) words = 3 * (size_t)kThreads;
-  edge_scan_tiles<BP><<<grid, block, words * sizeof(float), stream>>>(
-      xb, wy, w, n, d, B, tile_n, part_hist, part_scal);
-  return cudaGetLastError();
+  // cross-tile sums, in tile order, by the last block to arrive
+  const int groups = (tiles + group - 1) / group;
+  const int g = tile / group;
+  const int members = min(group, tiles - g * group);
+  int* cnt = counters + (size_t)wk * (groups + 1);
+  if (!last_to_arrive(cnt + g, members, &flag)) return;
+  const float* src1 = part1 + ((size_t)wk * tiles + (size_t)g * group) * cells;
+  if (groups == 1) {
+    sum_partials(src1, members, cells, hc, hist + (size_t)wk * hc, scal + wk, W);
+    return;
+  }
+  float* mid = part2 + ((size_t)wk * groups + g) * cells;
+  sum_partials(src1, members, cells, hc, mid, mid + hc, 1);
+  if (!last_to_arrive(cnt + groups, groups, &flag)) return;
+  sum_partials(part2 + (size_t)wk * groups * cells, groups, cells, hc, hist + (size_t)wk * hc,
+               scal + wk, W);
 }
 
 }  // namespace
 
 // xb (W, n, d) int32, wy/w (W, n) f32 -> hist (W, d, B) f32, scal (3, W) f32.
-// Scratch: part_hist (W, tiles, d, B), part_scal (W, tiles, 3) with
-// tiles = max(1, ceil(n / tile_n)). Requires 1 <= B <= 32, W >= 1.
-extern "C" int edge_scan_launch(const int* xb, const float* wy, const float* w,
-                                float* part_hist, float* part_scal, float* hist, float* scal,
-                                int W, int n, int d, int B, int tile_n, void* stream_ptr) {
+// Plan (kernels/ops.py::edge_scan_plan): tiles = ceil(n / tile_rows) >= 1
+// row tiles per worker, in groups of `group` tiles. With tiles > 1 the
+// scratch is part1 (W, tiles, d*B + 3) and part2 (W, ceil(tiles / group),
+// d*B + 3) f32 and counters (W, ceil(tiles / group) + 1) int32, zero on
+// entry and zero again on exit. Requires 1 <= B <= 32, W >= 1.
+extern "C" int edge_scan_launch(const int* xb, const float* wy, const float* w, float* part1,
+                                float* part2, int* counters, float* hist, float* scal, int W,
+                                int n, int d, int B, int tile_rows, int tiles, int group,
+                                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int tiles = n > 0 ? (n + tile_n - 1) / tile_n : 1;
-  int nx = 32;
-  while (nx < d && nx < kThreads) nx *= 2;
-  dim3 block(nx, kThreads / nx);
-  dim3 grid(tiles, W);
-  cudaError_t err;
-  if (B <= 2) {
-    err = launch_tiles<2>(grid, block, stream, xb, wy, w, n, d, B, tile_n, part_hist, part_scal);
-  } else if (B <= 4) {
-    err = launch_tiles<4>(grid, block, stream, xb, wy, w, n, d, B, tile_n, part_hist, part_scal);
-  } else if (B <= 8) {
-    err = launch_tiles<8>(grid, block, stream, xb, wy, w, n, d, B, tile_n, part_hist, part_scal);
-  } else if (B <= 16) {
-    err = launch_tiles<16>(grid, block, stream, xb, wy, w, n, d, B, tile_n, part_hist, part_scal);
+  const dim3 grid(tiles, W);
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0 && B <= 8;
+  const int vec = vec4 ? 4 : 1;
+  const size_t smem = (size_t)vec * B * kThreads * sizeof(float);
+  // pipeline the row loop only when a row lane has more than two of its
+  // batches: on short tiles the plain loop's longer batch is faster
+  const int groups_per_row = (d + vec - 1) / vec;
+  const int lanes = kThreads / (groups_per_row < kThreads ? groups_per_row : kThreads);
+  const bool piped = (tile_rows + lanes - 1) / lanes > 2 * kRowsPiped;
+#define EDGE_SCAN_LAUNCH(V, P)                                                               \
+  edge_scan_kernel<V, P><<<grid, kThreads, smem, stream>>>(xb, wy, w, W, n, d, B, tile_rows, \
+                                                           group, part1, part2, counters,    \
+                                                           hist, scal)
+  if (vec4) {
+    if (piped) EDGE_SCAN_LAUNCH(4, true); else EDGE_SCAN_LAUNCH(4, false);
   } else {
-    err = launch_tiles<32>(grid, block, stream, xb, wy, w, n, d, B, tile_n, part_hist, part_scal);
+    if (piped) EDGE_SCAN_LAUNCH(1, true); else EDGE_SCAN_LAUNCH(1, false);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_scan_finish<<<W, kThreads, 0, stream>>>(part_hist, part_scal, tiles, d * B, W, hist, scal);
+#undef EDGE_SCAN_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 
 Counterpart of ``src/repro/kernels/ops.py``. Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``
-and then:
+(K1 also keeps scratch per device and stream, reused across calls) and
+then:
 
   * on CPU tensors calls the plain version in :mod:`.ref`;
   * on CUDA tensors launches its kernel on the current stream (building
@@ -16,6 +17,9 @@ There is no fallback from a failed build or launch to the plain version.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from repro_torch.kernels import ref
@@ -24,10 +28,15 @@ from repro_torch.kernels import ref
 #: adds one where it launches its kernel and nowhere else
 LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0}
 
-#: rows per K1 block tile (a 256-thread block walks them in row groups)
-EDGE_SCAN_TILE_N = 256
-#: K3 stages each row's C+m entries (16 B each) in shared memory
-_QUEUE_INGEST_SMEM = 48 * 1024
+#: K1 plan: aim for this many 256-thread blocks per SM ...
+EDGE_SCAN_BLOCKS_PER_SM = 2
+#: ... but give no row tile fewer rows than this ...
+EDGE_SCAN_MIN_TILE_ROWS = 128
+#: ... and let one block sum up to this many row tiles of a worker; more
+#: take a second level of groups of about sqrt(tiles)
+EDGE_SCAN_ONE_LEVEL_TILES = 16
+#: K3 block size: whole rows of C+m threads, up to this many threads
+_QUEUE_INGEST_THREADS = 256
 #: rows per K4 block (one thread per row)
 WEIGHT_UPDATE_TILE_N = 128
 #: shared memory one block may use on an H100 (232 448 B, opted in above 48 KB)
@@ -74,6 +83,53 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def edge_scan_plan(nw: int, n: int, sms: int) -> tuple[int, int, int]:
+    """K1's work split: ``(tile_rows, tiles, group)``. Each of the ``nw``
+    workers' ``n`` rows is cut into ``tiles`` row tiles of ``tile_rows``
+    rows (the last may be shorter), about ``EDGE_SCAN_BLOCKS_PER_SM``
+    blocks per SM in all; the last block of each ``group`` of tiles sums
+    that group's partials, and with more than one group the last group
+    sums the groups. ``tiles == 1`` needs no scratch."""
+    want = max(1, EDGE_SCAN_BLOCKS_PER_SM * sms // max(nw, 1))
+    tiles = max(1, min(want, -(-n // EDGE_SCAN_MIN_TILE_ROWS)))
+    tile_rows = max(1, -(-n // tiles))
+    tiles = max(1, -(-n // tile_rows))
+    group = tiles if tiles <= EDGE_SCAN_ONE_LEVEL_TILES else math.isqrt(tiles - 1) + 1
+    return tile_rows, tiles, group
+
+
+#: K1's scratch per (device, stream): partial sums and zeroed ticket counters,
+#: grown when a call needs more and otherwise reused (each launch leaves its
+#: counters at zero)
+_EDGE_SCAN_SCRATCH: dict = {}
+
+
+def _edge_scan_scratch(dev: torch.device, stream: int, floats: int, counters: int):
+    key = (dev, stream)
+    part, cnt = _EDGE_SCAN_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty((max(floats, 1),), dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros((max(counters, 1),), dtype=torch.int32, device=dev)
+    _EDGE_SCAN_SCRATCH[key] = (part, cnt)
+    return part, cnt
+
+
+def queue_ingest_plan(nw: int, n: int, sms: int) -> tuple[int, int]:
+    """K3's block shape for ``n = C + m`` entries per row:
+    ``(rows_per_block, row_threads)``. Every entry gets a thread (at most
+    1024 a row); small W runs one row per block, large W packs whole rows
+    into blocks of up to ``_QUEUE_INGEST_THREADS`` threads."""
+    row_threads = max(1, min(1024, n))
+    rows = max(1, min(_QUEUE_INGEST_THREADS // row_threads, -(-nw // (2 * sms))))
+    return rows, row_threads
+
+
 def edge_scan(
     xb: torch.Tensor,
     wy: torch.Tensor,
@@ -83,7 +139,9 @@ def edge_scan(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1, batched over a leading worker axis: ``xb (W, n, d)`` int32,
     ``wy``/``w (W, n)`` f32 -> ``(hist (W, d, B), W_ (W,), V (W,),
-    T (W,))``, all f32. One launch covers every worker."""
+    T (W,))``, all f32; bins outside ``[0, B)`` add nothing. One launch
+    covers every worker, split by :func:`edge_scan_plan`; the result is
+    bitwise the same on every launch with the same inputs."""
     if xb.dim() != 3:
         raise ValueError(f"edge_scan: xb must be (W, n, d), got {tuple(xb.shape)}")
     nw, n, d = xb.shape
@@ -102,12 +160,16 @@ def edge_scan(
     from repro_torch.kernels.build import load_library
 
     lib = load_library()
-    tiles = max(1, -(-n // EDGE_SCAN_TILE_N))
-    part_hist = torch.empty((nw, tiles, d, num_bins), dtype=torch.float32, device=dev)
-    part_scal = torch.empty((nw, tiles, 3), dtype=torch.float32, device=dev)
+    tile_rows, tiles, group = edge_scan_plan(nw, n, _sm_count(dev))
+    groups = -(-tiles // group)
+    cells = d * num_bins + 3
+    stream = _stream(dev)
+    part1_n = nw * tiles * cells if tiles > 1 else 0
+    part2_n = nw * groups * cells if groups > 1 else 0
+    part, cnt = _edge_scan_scratch(dev, stream, part1_n + part2_n, nw * (groups + 1))
     err = lib.edge_scan_launch(
-        _ptr(xb), _ptr(wy), _ptr(w), _ptr(part_hist), _ptr(part_scal), _ptr(hist), _ptr(scal),
-        nw, n, d, num_bins, EDGE_SCAN_TILE_N, _stream(dev),
+        _ptr(xb), _ptr(wy), _ptr(w), _ptr(part), _ptr(part) + 4 * part1_n, _ptr(cnt), _ptr(hist),
+        _ptr(scal), nw, n, d, num_bins, tile_rows, tiles, group, stream,
     )
     _raise_on("edge_scan", err)
     LAUNCHES["edge_scan"] += 1
@@ -187,8 +249,7 @@ def queue_ingest(
     args = [q_cert, q_due, q_src, q_slot, c_cert, c_due, c_src, c_slot]
     if not _route("queue_ingest", args):
         return ref.queue_ingest_ref(*args)
-    row_bytes = (cap + m) * 16
-    if row_bytes > _QUEUE_INGEST_SMEM:
+    if (cap + m) * 16 > _MAX_BLOCK_SMEM:
         raise ValueError(f"queue_ingest: C + m = {cap + m} entries exceed one block's shared memory")
     dev = q_cert.device
     outs = (
@@ -201,9 +262,10 @@ def queue_ingest(
         return outs
     from repro_torch.kernels.build import load_library
 
-    rows_per_block = max(1, min(8, _QUEUE_INGEST_SMEM // row_bytes))
+    rows_per_block, row_threads = queue_ingest_plan(nw, cap + m, _sm_count(dev))
+    rows_per_block = min(rows_per_block, _MAX_BLOCK_SMEM // ((cap + m) * 16))
     err = load_library().queue_ingest_launch(
-        *[_ptr(t) for t in args], *[_ptr(t) for t in outs], nw, cap, m, rows_per_block,
+        *[_ptr(t) for t in args], *[_ptr(t) for t in outs], nw, cap, m, rows_per_block, row_threads,
         _stream(dev),
     )
     _raise_on("queue_ingest", err)
@@ -266,4 +328,13 @@ def weight_update(
     return m_new, w
 
 
-__all__ = ["LAUNCHES", "edge_scan", "queue_ingest", "reset_launches", "round_deliver", "weight_update"]
+__all__ = [
+    "LAUNCHES",
+    "edge_scan",
+    "edge_scan_plan",
+    "queue_ingest",
+    "queue_ingest_plan",
+    "reset_launches",
+    "round_deliver",
+    "weight_update",
+]

@@ -144,6 +144,46 @@ def queue_ingest_ref(
     )
 
 
+def queue_ingest_keys(
+    cert: torch.Tensor, due: torch.Tensor, src: torch.Tensor, column: torch.Tensor
+) -> torch.Tensor:
+    """Kernel K3's 128-bit sort key of each entry, as its four uint32
+    words (held in int64), most significant first: an order-preserving
+    uint32 of ``cert`` with -0.0 folded to +0.0, ``src ^ 0x80000000``,
+    ``due ^ 0x80000000`` and the column. Unsigned lexicographic order of
+    the words is the order (cert, src, due, column) of
+    :func:`queue_ingest_ref`. A mirror of the kernel for the tests; no path
+    runs it."""
+    u = cert.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
+    c_key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    s_key = (src.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    d_key = (due.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    return torch.stack([c_key, s_key, d_key, column.to(torch.int64)], dim=-1)
+
+
+def queue_ingest_rank_select(q_cert, q_due, q_src, q_slot, c_cert, c_due, c_src, c_slot):
+    """:func:`queue_ingest_ref` computed the way kernel K3 computes it:
+    each merged entry's rank is the number of keys
+    (:func:`queue_ingest_keys`) below its own, and the entry of rank r is
+    written to column r when r < C. A mirror of the kernel for the tests;
+    no path runs it."""
+    merged = [torch.cat(p, dim=1) for p in ((q_cert, c_cert), (q_due, c_due), (q_src, c_src), (q_slot, c_slot))]
+    nw, n = merged[0].shape
+    column = torch.arange(n, device=q_cert.device).expand(nw, n)
+    key = queue_ingest_keys(merged[0], merged[1], merged[2], column)
+    kj, kk = key.unsqueeze(2), key.unsqueeze(1)  # (W, j, 1, 4), (W, 1, k, 4)
+    below = torch.zeros((nw, n, n), dtype=torch.bool, device=key.device)
+    tied = torch.ones_like(below)
+    for word in range(4):
+        below = below | (tied & (kj[..., word] < kk[..., word]))
+        tied = tied & (kj[..., word] == kk[..., word])
+    rank = below.sum(dim=1)  # (W, k): a permutation of 0..n-1 per row
+    at_rank = torch.empty_like(rank).scatter_(1, rank, column.contiguous())
+    keep = at_rank[:, : q_cert.shape[1]]
+    return tuple(torch.gather(a, 1, keep) for a in merged)
+
+
 def margin_delta_oracle(model, xb: torch.Tensor, t_lo: int, t_hi: int) -> torch.Tensor:
     """Stump-by-stump margin delta of slots ``[t_lo, t_hi)`` of a
     ``StumpModel`` on rows ``xb (n, d)``: the model's own semantics, which

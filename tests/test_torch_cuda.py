@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1 ``edge_scan`` to 1e-5 and bitwise equal to itself on a second
-launch (no float atomics), K2 ``round_step`` and K3 ``queue_ingest``
-bit-exact, K4 ``weight_update`` to rtol 1e-4 / atol 1e-5 (the
-reference's own tolerance) and bitwise equal to itself. Imports no JAX,
+launch (no float atomics), also through ``edge_histogram``, K2
+``round_step`` and K3 ``queue_ingest`` bit-exact, K4 ``weight_update``
+to rtol 1e-4 / atol 1e-5 (the reference's own tolerance) and bitwise
+equal to itself. Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -25,10 +26,18 @@ def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def _scan_inputs(seed, w, n, d, num_bins):
+def _scan_inputs(seed, w, n, d, num_bins, lo=0, hi=None):
+    """Weights in [0.05, 1.05); from n = 100 000 rows on, multiples of 1/64
+    in [1/64, 1] instead, whose float32 sums are exact in any order: there
+    the plain version's own rounding (up to ~1e-3 over 180 000 float rows)
+    would exceed the 1e-5 tolerance, and the comparison is of the kernel's
+    indexing, not of two summation orders."""
     rng = np.random.default_rng(seed)
-    xb = rng.integers(0, num_bins, (w, n, d), dtype=np.int32)
-    wt = (rng.random((w, n)) + 0.05).astype(np.float32)
+    xb = rng.integers(lo, num_bins if hi is None else hi, (w, n, d), dtype=np.int32)
+    if n >= 100_000:
+        wt = (rng.integers(1, 65, (w, n)) / 64).astype(np.float32)
+    else:
+        wt = (rng.random((w, n)) + 0.05).astype(np.float32)
     y = np.where(rng.random((w, n)) < 0.5, 1.0, -1.0).astype(np.float32)
     return xb, (wt * y).astype(np.float32), wt
 
@@ -67,6 +76,20 @@ def _ingest_inputs(seed, w, cap, m, fill=0.6):
 
 
 
+def _ingest_edge_inputs(seed, w, cap, m):
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, -1.0, -0.5, -0.25], np.float32)
+
+    def leaves(k):
+        return (
+            pool[rng.integers(0, len(pool), (w, k))],
+            rng.integers(-1, 2, (w, k), dtype=np.int32),
+            rng.integers(-1, 3, (w, k), dtype=np.int32),
+            rng.integers(0, 2, (w, k), dtype=np.int32),
+        )
+
+    return leaves(cap) + leaves(m)
+
 
 @pytest.fixture
 def cuda_device():
@@ -79,16 +102,82 @@ def _cuda(arrays, dev):
     return [_t(a).to(dev) for a in arrays]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w,n,d,num_bins", [(10, 2048, 64, 8), (3, 100, 33, 5), (2, 7, 4, 16)])
-def test_cuda_edge_scan(cuda_device, w, n, d, num_bins):
-    args = _cuda(_scan_inputs(w + n, w, n, d, num_bins), cuda_device)
+def _assert_scan(args, num_bins):
+    """Bitwise equal on a second launch (no float atomics) and allclose
+    1e-5 to the plain version."""
     got = tops.edge_scan(*args, num_bins=num_bins)
     again = tops.edge_scan(*args, num_bins=num_bins)
     plain = tref.edge_scan_ref(*args, num_bins)
     for a, b, c in zip(got, again, plain):
-        assert torch.equal(a, b)  # deterministic: no float atomics
+        assert torch.equal(a, b)
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "w,n,d,num_bins",
+    [
+        (10, 2048, 64, 8),  # the engine's main path
+        (256, 2048, 64, 8),
+        (1, 2048, 64, 8),  # the event simulator's scan segments
+        (1, 180_000, 64, 8),  # exact greedy over the training split
+        (3, 100, 33, 5),
+        (2, 7, 4, 16),
+        (4, 2039, 64, 8),  # n prime: no tile divides it
+        (3, 1000, 33, 1),
+        (2, 513, 4, 2),
+        (5, 300, 16, 17),
+        (2, 250, 8, 32),
+        (1, 0, 8, 8),
+    ],
+)
+def test_cuda_edge_scan(cuda_device, w, n, d, num_bins):
+    _assert_scan(_cuda(_scan_inputs(w + n, w, n, d, num_bins), cuda_device), num_bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,num_bins", [(64, 8), (33, 5), (4, 32)])
+def test_cuda_edge_scan_bins_outside_range(cuda_device, d, num_bins):
+    """Bins below 0 and at or above B add nothing, as in the plain version."""
+    arrays = _scan_inputs(d, 3, 777, d, num_bins, lo=-2, hi=num_bins + 3)
+    _assert_scan(_cuda(arrays, cuda_device), num_bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 4])
+def test_cuda_edge_scan_misaligned_xb(cuda_device, d):
+    """xb taken as a contiguous slice one int past a 16-byte boundary: the
+    kernel must not issue 16-byte loads from it."""
+    xb, wy, w = _scan_inputs(d + 1, 2, 600, d, 8)
+    flat = torch.zeros(xb.size + 1, dtype=torch.int32, device=cuda_device)
+    flat[1:] = _t(xb.reshape(-1)).to(cuda_device)
+    xb_view = flat[1:].view(xb.shape)
+    assert xb_view.is_contiguous() and xb_view.data_ptr() % 16 != 0
+    args = [xb_view, *_cuda((wy, w), cuda_device)]
+    _assert_scan(args, 8)
+    aligned = tops.edge_scan(*_cuda((xb,), cuda_device), *args[1:], num_bins=8)
+    for a, b in zip(aligned, tops.edge_scan(*args, num_bins=8)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(180_000, 64), (2, 500, 16), (3, 1, 7, 64)])
+def test_cuda_edge_histogram(cuda_device, shape):
+    """The baselines' histogram on the card goes through K1: the same bits
+    on two calls, and allclose 1e-5 to the plain ``index_add_`` version."""
+    from repro_torch.boosting.stumps import edge_histogram, edge_histogram_plain
+
+    rng = np.random.default_rng(len(shape))
+    xb = _t(rng.integers(0, 8, shape, dtype=np.int32)).to(cuda_device)
+    # multiples of 1/64: index_add_'s float atomics add them exactly in any order
+    wy = _t((rng.integers(-64, 65, shape[:-1]) / 64).astype(np.float32)).to(cuda_device)
+    tops.reset_launches()
+    got = edge_histogram(xb, wy, 8)
+    again = edge_histogram(xb, wy, 8)
+    assert tops.LAUNCHES["edge_scan"] == 2
+    assert got.shape == (*shape[:-2], shape[-1], 8)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, edge_histogram_plain(xb, wy, 8), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -102,14 +191,54 @@ def test_cuda_round_step(cuda_device, w, cap):
             assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w,cap,m", [(10, 64, 1), (4096, 64, 8), (7, 4, 3)])
-def test_cuda_queue_ingest(cuda_device, w, cap, m):
-    args = _cuda(_ingest_inputs(w + m, w, cap, m), cuda_device)
+def _bits(t):
+    """Bit pattern of a tensor: torch.equal calls -0.0 and +0.0 equal."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_ingest(args):
     got = tops.queue_ingest(*args)
     plain = tref.queue_ingest_ref(*args)
     for a, b in zip(got, plain):
-        assert torch.equal(a, b)
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "w,cap,m",
+    [
+        (10, 64, 1),  # the engine's main path
+        (4096, 64, 1),
+        (4096, 64, 8),
+        (7, 4, 3),
+        (5, 100, 40),  # C + m > 64
+        (9, 1, 3),  # C = 1
+        (6, 4, 12),  # m > C
+        (3, 3500, 20),  # a thread per several entries, > 48 KB of shared memory
+    ],
+)
+def test_cuda_queue_ingest(cuda_device, w, cap, m):
+    _assert_ingest(_cuda(_ingest_inputs(w + m, w, cap, m), cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,cap,m", [(64, 64, 1), (33, 16, 8), (5, 3, 9)])
+def test_cuda_queue_ingest_edge_values(cuda_device, w, cap, m):
+    """+-0.0 and +-inf certificates, duplicate (cert, src, due) entries and
+    due = -1 padding, drawn from small pools so that ties are common."""
+    _assert_ingest(_cuda(_ingest_edge_inputs(w * cap + m, w, cap, m), cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_queue_ingest_all_inf_queue(cuda_device):
+    """An all-+inf queue: the order among +inf entries (src, due, column)
+    still decides which survive."""
+    w, cap, m = 12, 16, 4
+    args = list(_ingest_edge_inputs(3, w, cap, m))
+    args[0] = np.full((w, cap), np.inf, np.float32)
+    _assert_ingest(_cuda(args, cuda_device))
+    args[4] = np.full((w, m), np.inf, np.float32)
+    _assert_ingest(_cuda(args, cuda_device))
 
 
 def _weight_inputs(seed, n, d, num_bins):

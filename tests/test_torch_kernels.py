@@ -304,6 +304,110 @@ class TestQueueIngest:
         np.testing.assert_array_equal(slot.numpy(), [[1, 2]])
 
 
+def _ingest_edge_inputs(seed, w, cap, m):
+    """Certificates from a small pool with +-0.0 and +-inf, src and due
+    from tiny ranges with due = -1 padding: duplicate (cert, src, due)
+    entries are common."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, -1.0, -0.5, -0.25], np.float32)
+
+    def leaves(k):
+        return (
+            pool[rng.integers(0, len(pool), (w, k))],
+            rng.integers(-1, 2, (w, k), dtype=np.int32),
+            rng.integers(-1, 3, (w, k), dtype=np.int32),
+            rng.integers(0, 2, (w, k), dtype=np.int32),
+        )
+
+    return leaves(cap) + leaves(m)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+class TestQueueIngestKey:
+    """The plain mirror of K3's 128-bit key (``ref.queue_ingest_keys``)
+    and of its rank-select (``ref.queue_ingest_rank_select``): the order
+    the CUDA kernel computes, checked here on the CPU bit for bit."""
+
+    @pytest.mark.parametrize("w,cap,m", [(40, 6, 5), (16, 1, 3), (8, 4, 12), (5, 64, 1)])
+    def test_key_order_is_the_reference_order(self, w, cap, m):
+        args = [_t(a) for a in _ingest_edge_inputs(w * cap + m, w, cap, m)]
+        cert, due, src, slot = (torch.cat([args[i], args[i + 4]], dim=1) for i in range(4))
+        column = torch.arange(cap + m).expand(w, cap + m)
+        key = tref.queue_ingest_keys(cert, due, src, column)
+        assert key.shape == (w, cap + m, 4) and int(key.min()) >= 0 and int(key.max()) < 2**32
+        order = tref.lexsort(tuple(key[..., k] for k in (3, 2, 1, 0)), dim=-1)[:, :cap]
+        want = tref.queue_ingest_ref(*args)
+        for a, b in zip((cert, due, src, slot), want):
+            np.testing.assert_array_equal(_bits(torch.gather(a, 1, order).numpy()), _bits(b.numpy()))
+
+    @pytest.mark.parametrize("w,cap,m", [(40, 6, 5), (16, 1, 3), (8, 4, 12), (5, 64, 1)])
+    def test_rank_select_matches_reference(self, w, cap, m):
+        """Bitwise equal to the port's ``queue_ingest_ref`` and to the JAX
+        reference, -0.0 kept as -0.0."""
+        arrays = _ingest_edge_inputs(w + 7 * cap + m, w, cap, m)
+        got = tref.queue_ingest_rank_select(*[_t(a) for a in arrays])
+        port = tref.queue_ingest_ref(*[_t(a) for a in arrays])
+        jax_ref = _queue_ingest_ref(*arrays)
+        for a, b, c in zip(got, port, jax_ref):
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(b.numpy()))
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(c))
+
+    def test_key_words(self):
+        """-0.0 and +0.0 share a key, -inf < negatives < 0 < +inf, and the
+        int32 fields flip their sign bit."""
+        cert = _t(np.array([-np.inf, -1.0, -0.0, 0.0, 1.0, np.inf], np.float32))
+        zeros = torch.zeros(6, dtype=torch.int32)
+        key = tref.queue_ingest_keys(cert, zeros - 1, zeros + 2, torch.arange(6))
+        c = key[:, 0].tolist()
+        assert c[2] == c[3] == 0x80000000 and c == sorted(c) and len(set(c)) == 5
+        assert key[0, 1] == 0x80000002 and key[0, 2] == 0x7FFFFFFF and key[5, 3] == 5
+
+
+class TestPlans:
+    """How the wrappers split K1 and K3 on the card (pure functions)."""
+
+    @pytest.mark.parametrize("nw,n", [(10, 2048), (256, 2048), (1, 2048), (1, 180_000), (3, 7), (1, 0), (4096, 1)])
+    @pytest.mark.parametrize("sms", [132, 1])
+    def test_edge_scan_plan_covers_every_row(self, nw, n, sms):
+        tile_rows, tiles, group = tops.edge_scan_plan(nw, n, sms)
+        assert tiles >= 1 and tile_rows >= 1 and 1 <= group <= tiles
+        assert (tiles - 1) * tile_rows < max(n, 1) <= tiles * tile_rows  # no empty tile
+        groups = -(-tiles // group)
+        assert group <= tops.EDGE_SCAN_ONE_LEVEL_TILES or groups <= group
+        if sms == 132 and n >= 2048:  # the main shapes come within a worker of the target
+            target = tops.EDGE_SCAN_BLOCKS_PER_SM * sms
+            assert nw * tiles > min(target - nw, -(-n // tops.EDGE_SCAN_MIN_TILE_ROWS) * nw - 1)
+
+    @pytest.mark.parametrize("nw,n", [(10, 65), (4096, 65), (4096, 72), (3, 3520), (7, 2)])
+    def test_queue_ingest_plan(self, nw, n):
+        rows, row_threads = tops.queue_ingest_plan(nw, n, 132)
+        assert row_threads == min(n, 1024) and rows * row_threads <= 1024  # a thread per entry
+        if nw <= 132:
+            assert rows == 1
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_edge_histogram_cpu_is_plain_and_matches_reference(lead):
+    """On CPU tensors ``edge_histogram`` is the plain scatter-add (no
+    launch) and equals the JAX package's histogram."""
+    from repro_torch.boosting import stumps as tst
+
+    rng = np.random.default_rng(len(lead))
+    xb = rng.integers(0, 8, (*lead, 300, 12), dtype=np.int32)
+    wy = (rng.random((*lead, 300)) - 0.5).astype(np.float32)
+    tops.reset_launches()
+    got = tst.edge_histogram(_t(xb), _t(wy), 8)
+    assert tops.LAUNCHES["edge_scan"] == 0
+    assert torch.equal(got, tst.edge_histogram_plain(_t(xb), _t(wy), 8))
+    want = np.stack([np.asarray(jst.edge_histogram(jnp.asarray(x), jnp.asarray(v), 8))
+                     for x, v in zip(xb.reshape(-1, 300, 12), wy.reshape(-1, 300))]).reshape(got.shape)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("w,n", [(3, 40), (16, 24)])
 def test_lexsort_matches_jnp_lexsort(w, n):
     """The port's lexsort (successive stable sorts) == jnp.lexsort,
