@@ -12,8 +12,12 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
   build      nvcc builds the kernel library from ``src/repro_torch/kernels/csrc``;
   kernels    the launch floor (a one-element fill); K1 edge_scan, K2
              round_step, K3 queue_ingest against their plain versions at the
-             main path's shapes and at large W, K1 also at W=1 (n=2048 and
-             n=180 000), K3 also on edge cases (+-0.0, +-inf, duplicates,
+             main path's shapes and at large W (K2 at W=10, 4096 and 10240,
+             bit for bit and on a second launch), K1 also at W=1 (n=2048 and
+             n=180 000), K2 also on edge cases (+-0.0 ties, +-inf, NaN, ties
+             in cert and src, due=-1, dead rows, C=1, C % 4 != 0, C=3500,
+             ragged W, leaves off a 16-byte boundary, the signed-zero rows),
+             K3 also on edge cases (+-0.0, +-inf, duplicates,
              due=-1, C+m > 64, C=1, m > C); K4 weight_update (A, c from
              scatter_model_slice of a random 256-stump model) at a full
              disk refresh (n=180 000, d=64, B=8) and two ragged shapes;
@@ -235,33 +239,92 @@ def main() -> int:
             records["edge_scan"]["library_device_ms"] = lib_dev_ms
         del xb, w, y, wy, flat, src, buf, got, again, plain
 
-    # K2 round_step and K3 queue_ingest
-    for nw in (10, 4096):
-        cap = 64
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def queue_leaves(nw, cap):
         fill = torch.rand((nw, cap), generator=g, device=dev) < 0.6
-        qc = torch.where(fill, -torch.rand((nw, cap), generator=g, device=dev) - 0.01, float("inf"))
-        qd = torch.randint(0, 4, (nw, cap), generator=g, device=dev, dtype=torch.int32)
-        qs = torch.randint(0, nw, (nw, cap), generator=g, device=dev, dtype=torch.int32)
-        ql = torch.randint(0, 3, (nw, cap), generator=g, device=dev, dtype=torch.int32)
-        c0 = -torch.rand((nw,), generator=g, device=dev)
-        al = torch.rand((nw,), generator=g, device=dev) < 0.8
-        cr = torch.rand((nw,), generator=g, device=dev)
-        sp = torch.linspace(0.2, 1.0, nw, device=dev)
-        args = (qc, qd, qs, ql, c0, al, cr, sp)
+        return (torch.where(fill, -torch.rand((nw, cap), generator=g, device=dev) - 0.01, float("inf")),
+                torch.randint(0, 4, (nw, cap), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, nw, (nw, cap), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 3, (nw, cap), generator=g, device=dev, dtype=torch.int32))
+
+    def round_equal(args, r):
+        """K2 bitwise equal to its plain version and to its own second launch."""
+        got = ops.round_deliver(*args, r, eps=0.01)
+        again = ops.round_deliver(*args, r, eps=0.01)
+        plain = ref.round_step_ref(*args, r, eps=0.01)
+        return all(torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))
+                   for a, b, c in zip(got, again, plain))
+
+    # K2 round_step: the engine (W=10) and the large-W queues (W=4096, 10240)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nw in (10, 4096, 10240):
+        cap = 64
+        args = queue_leaves(nw, cap) + (
+            -torch.rand((nw,), generator=g, device=dev), torch.rand((nw,), generator=g, device=dev) < 0.8,
+            torch.rand((nw,), generator=g, device=dev), torch.linspace(0.2, 1.0, nw, device=dev))
         for r in (0, 2):
-            got = ops.round_deliver(*args, r, eps=0.01)
-            plain = ref.round_step_ref(*args, r, eps=0.01)
-            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
-                raise AssertionError(f"K2 W={nw} r={r}: differs from round_step_ref")
+            if not round_equal(args, r):
+                raise AssertionError(f"K2 W={nw} r={r}: differs from round_step_ref or from its second launch")
         ms = time_ms(lambda: ops.round_deliver(*args, 2, eps=0.01))
         plain_ms = time_ms(lambda: ref.round_step_ref(*args, 2, eps=0.01))
         dev_ms = device_ms(lambda: ops.round_deliver(*args, 2, eps=0.01))
         nbytes = nw * cap * 20 + nw * 13 + nw * 22
         bnd = bound(nbytes, nw * cap * 10)
-        log(f"phase kernels K2 round_step W={nw} C={cap} equal=True ms={ms:.5f} device_ms={dev_ms} "
-            f"plain_ms={plain_ms:.5f} bound_ms={bnd[0]:.6f} ({bnd[1]})")
+        log(f"phase kernels K2 round_step W={nw} C={cap} plan(vec,row_lanes,warps_per_block)="
+            f"{ops.round_step_plan(nw, cap, sms)} bitwise_equal=True repeat=True ms={ms:.5f} "
+            f"device_ms={dev_ms} plain_ms={plain_ms:.5f} bound_ms={bnd[0]:.6f} ({bnd[1]})")
         record("round_step", "src/repro_torch/kernels/csrc/round_step.cu",
                "src/repro/kernels/round_step.py:217", 0.0, nw == 10, ms, plain_ms, bnd, None, dev_ms)
+        del args
+
+    # K2 edge cases: +-0.0 ties in one row, +-inf and NaN certs, ties in cert
+    # and src, due = -1, dead destinations, C = 1, C % 4 != 0, C = 3500, W not
+    # a multiple of the rows a block holds, queue leaves off a 16-byte boundary
+    k2_pool = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"), -1.0, -0.5, -0.25],
+                           device=dev)
+
+    def round_edge(nw, cap):
+        return (k2_pool[torch.randint(0, len(k2_pool), (nw, cap), generator=g, device=dev)],
+                torch.randint(-1, 2, (nw, cap), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(-1, 3, (nw, cap), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 2, (nw, cap), generator=g, device=dev, dtype=torch.int32),
+                k2_pool[torch.randint(4, len(k2_pool), (nw,), generator=g, device=dev)],
+                torch.rand((nw,), generator=g, device=dev) < 0.7,
+                torch.rand((nw,), generator=g, device=dev), torch.rand((nw,), generator=g, device=dev))
+
+    def off_boundary(t):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    k2_cases = 0
+    for nw, cap in [(10, 64), (37, 64), (4099, 64), (33, 1), (9, 3), (6, 5), (5, 100), (3, 3500), (1, 2)]:
+        args = round_edge(nw, cap)
+        for shifted in (False, True):
+            if shifted:
+                args = tuple(off_boundary(a) for a in args[:4]) + args[4:]
+            for r in (0, 1):
+                if not round_equal(args, r):
+                    raise AssertionError(f"K2 edge case W={nw} C={cap} r={r} off_boundary={shifted}: differs "
+                                         "from round_step_ref or from its second launch")
+                k2_cases += 1
+    for row in ([0.0, -0.0], [-0.0, 0.0], [0.0, -0.0, 0.0, -0.0, -0.0]):
+        c = len(row)
+        args = (torch.tensor([row], device=dev), torch.zeros((1, c), dtype=torch.int32, device=dev),
+                torch.arange(c, 0, -1, dtype=torch.int32, device=dev)[None],
+                torch.arange(c, dtype=torch.int32, device=dev)[None], torch.zeros(1, device=dev),
+                torch.ones(1, dtype=torch.bool, device=dev), torch.zeros(1, device=dev), torch.ones(1, device=dev))
+        if not round_equal(args, 0) or int(bits(ops.round_deliver(*args, 0, eps=0.01)[1])[0]) != -(2**31):
+            raise AssertionError(f"K2 signed-zero row {row}: best_cert is not -0.0 or differs from round_step_ref")
+        k2_cases += 1
+    log(f"phase kernels K2 round_step edge_cases={k2_cases} bitwise_equal=True repeat=True")
+
+    # K3 queue_ingest
+    for nw in (10, 4096):
+        cap = 64
+        qc, qd, qs, ql = queue_leaves(nw, cap)
         for m in (1, 8):
             cfill = torch.rand((nw, m), generator=g, device=dev) < 0.6
             cc = torch.where(cfill, -torch.rand((nw, m), generator=g, device=dev) - 0.01, float("inf"))
@@ -293,9 +356,6 @@ def main() -> int:
                 torch.randint(-1, 2, (nw, k), generator=g, device=dev, dtype=torch.int32),
                 torch.randint(-1, 3, (nw, k), generator=g, device=dev, dtype=torch.int32),
                 torch.randint(0, 2, (nw, k), generator=g, device=dev, dtype=torch.int32))
-
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
 
     k3_cases = 0
     for nw, cap, m in [(10, 64, 1), (4096, 64, 8), (5, 100, 40), (9, 1, 3), (6, 4, 12), (3, 3500, 20)]:

@@ -37,6 +37,8 @@ EDGE_SCAN_MIN_TILE_ROWS = 128
 EDGE_SCAN_ONE_LEVEL_TILES = 16
 #: K3 block size: whole rows of C+m threads, up to this many threads
 _QUEUE_INGEST_THREADS = 256
+#: K2: at most this many warps per block
+ROUND_STEP_MAX_WARPS = 8
 #: rows per K4 block (one thread per row)
 WEIGHT_UPDATE_TILE_N = 128
 #: shared memory one block may use on an H100 (232 448 B, opted in above 48 KB)
@@ -130,6 +132,21 @@ def queue_ingest_plan(nw: int, n: int, sms: int) -> tuple[int, int]:
     return rows, row_threads
 
 
+def round_step_plan(nw: int, cap: int, sms: int, aligned: bool = True) -> tuple[int, int, int]:
+    """K2's block shape: ``(vec, row_lanes, warps_per_block)``. A lane
+    loads ``vec`` entries at a time, 4 (16-byte loads) where ``cap % 4 == 0``
+    and the leaves are ``aligned`` to 16 bytes, else 1; a row gets the
+    fewest lanes, a power of two up to 32, whose loads cover it in one
+    pass (longer rows loop), so ``32 // row_lanes`` rows share a warp;
+    blocks hold up to ``ROUND_STEP_MAX_WARPS`` warps, fewer where more
+    warps a block would leave an SM without one."""
+    vec = 4 if aligned and cap % 4 == 0 else 1
+    loads = max(1, -(-cap // vec))
+    row_lanes = min(32, 1 << (loads - 1).bit_length())
+    warps = -(-max(nw, 1) // (32 // row_lanes))
+    return vec, row_lanes, max(1, min(ROUND_STEP_MAX_WARPS, warps // sms))
+
+
 def edge_scan(
     xb: torch.Tensor,
     wy: torch.Tensor,
@@ -191,7 +208,8 @@ def round_deliver(
 ):
     """K2: fused sparse delivery + eps-gated accept + laggard credit.
     Same contract as :func:`.ref.round_step_ref` (bool ``alive`` in,
-    bool ``take``/``active`` out)."""
+    bool ``take``/``active`` out), bit for bit, the sign of a zero
+    ``best_cert`` included. One launch, shaped by :func:`round_step_plan`."""
     nw, cap = q_cert.shape
     _check("round_deliver q_cert", q_cert, torch.float32, (nw, cap))
     for name, t in (("q_due", q_due), ("q_src", q_src), ("q_slot", q_slot)):
@@ -217,8 +235,11 @@ def round_deliver(
         return outs
     from repro_torch.kernels.build import load_library
 
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q_cert, q_due, q_src, q_slot, q_cert_new))
+    vec, row_lanes, warps_per_block = round_step_plan(nw, cap, _sm_count(dev), aligned)
     err = load_library().round_step_launch(
-        *[_ptr(t) for t in args], r, float(eps), *[_ptr(t) for t in outs], nw, cap, _stream(dev)
+        *[_ptr(t) for t in args], r, float(eps), *[_ptr(t) for t in outs], nw, cap, vec, row_lanes,
+        warps_per_block, _stream(dev),
     )
     _raise_on("round_deliver", err)
     LAUNCHES["round_step"] += 1
@@ -336,5 +357,6 @@ __all__ = [
     "queue_ingest_plan",
     "reset_launches",
     "round_deliver",
+    "round_step_plan",
     "weight_update",
 ]

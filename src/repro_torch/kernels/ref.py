@@ -90,7 +90,9 @@ def round_step_ref(
     """Fused sparse delivery: argmin over the entries due this round
     (ties to the lowest source id, then slot), the eps-gated accept,
     arrival clearing and the laggard-credit update. Bool ``alive`` in,
-    bool ``take``/``active`` out.
+    bool ``take``/``active`` out. A zero ``best_cert`` is -0.0 when any of
+    the tied zeros is, as the reference's ``jnp.min`` gives it
+    (``torch.amin`` keeps whichever zero it meets first).
 
     Returns ``(q_cert', best_cert, best_src, best_slot, take, n_arr,
     credit', active)``."""
@@ -100,6 +102,8 @@ def round_step_ref(
     arr = (q_due == r) & torch.isfinite(q_cert)
     arr_live = torch.where(arr & alive[:, None], q_cert, inf)
     best_cert = arr_live.amin(dim=1)
+    neg_zero = (best_cert == 0) & torch.signbit(arr_live).any(dim=1)
+    best_cert = torch.where(neg_zero, -torch.zeros_like(best_cert), best_cert)
     finite = torch.isfinite(best_cert)
     hit = (arr_live == best_cert[:, None]) & finite[:, None]
     best_src = torch.where(hit, q_src, big).amin(dim=1)
@@ -114,6 +118,32 @@ def round_step_ref(
     active = alive & (credit2 >= 1.0 - 1e-6)
     credit_new = torch.where(active, credit2 - 1.0, credit2)
     return q_cert_new, best_cert, best_src, best_slot, take, n_arr, credit_new, active
+
+
+def round_step_key_select(q_cert, q_due, q_src, q_slot, alive, r):
+    """``(best_cert, best_src, best_slot, n_arr)`` of :func:`round_step_ref`
+    computed the way kernel K2 computes them: each live arriving entry's
+    96-bit key (the first three words of :func:`queue_ingest_keys` over
+    (cert, src, slot)), every other entry all ones; the row's least key
+    decoded; the sign of a zero from any live arriving -0.0. A mirror of
+    the kernel for the tests; no path runs it."""
+    arr = (q_due == r) & torch.isfinite(q_cert)
+    cand = arr & alive[:, None]
+    key = queue_ingest_keys(q_cert, q_slot, q_src, torch.zeros_like(q_src))[..., :3]
+    key = torch.where(cand[..., None], key, 0xFFFFFFFF)
+    first = lexsort((key[..., 2], key[..., 1], key[..., 0]), dim=-1)[:, 0]
+    best = key[torch.arange(key.shape[0], device=key.device), first]  # (W, 3)
+    finite = best[:, 0] != 0xFFFFFFFF
+    u = torch.where(best[:, 0] >= 0x80000000, best[:, 0] & 0x7FFFFFFF, best[:, 0] ^ 0xFFFFFFFF)
+    neg = (cand & (q_cert.view(torch.int32) == -(2**31))).any(dim=1)
+    u = torch.where(finite, torch.where((u == 0) & neg, 0x80000000, u), 0x7F800000)
+
+    def int32(words):  # uint32 words held in int64 -> the int32 of the same bits
+        return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+    best_src = torch.where(finite, int32(best[:, 1] ^ 0x80000000), 0)
+    best_slot = torch.where(finite, int32(best[:, 2] ^ 0x80000000), 0)
+    return int32(u).view(torch.float32), best_src, best_slot, arr.sum(dim=1, dtype=torch.int32)
 
 
 def queue_ingest_ref(

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1 ``edge_scan`` to 1e-5 and bitwise equal to itself on a second
 launch (no float atomics), also through ``edge_histogram``, K2
-``round_step`` and K3 ``queue_ingest`` bit-exact, K4 ``weight_update``
+``round_step`` (also on a second launch) and K3 ``queue_ingest``
+bit-exact, floats compared as bit patterns, K4 ``weight_update``
 to rtol 1e-4 / atol 1e-5 (the reference's own tolerance) and bitwise
 equal to itself. Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
@@ -180,20 +181,92 @@ def test_cuda_edge_histogram(cuda_device, shape):
     torch.testing.assert_close(got, edge_histogram_plain(xb, wy, 8), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w,cap", [(10, 64), (4096, 64), (7, 5)])
-def test_cuda_round_step(cuda_device, w, cap):
-    args = _cuda(_round_inputs(w, w, cap), cuda_device)
-    for r in (0, 2):
-        got = tops.round_deliver(*args, r, eps=0.01)
-        plain = tref.round_step_ref(*args, r, eps=0.01)
-        for a, b in zip(got, plain):
-            assert torch.equal(a, b)
-
-
 def _bits(t):
     """Bit pattern of a tensor: torch.equal calls -0.0 and +0.0 equal."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _round_edge_inputs(seed, w, cap):
+    """Certs from a pool with +-0.0, +-inf and NaN, due in {-1, 0, 1}, src
+    and slot from tiny ranges (ties in cert -> src -> slot are common),
+    about a third of the rows dead."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, -0.5, -0.25], np.float32)
+    return (
+        pool[rng.integers(0, len(pool), (w, cap))],
+        rng.integers(-1, 2, (w, cap), dtype=np.int32),
+        rng.integers(-1, 3, (w, cap), dtype=np.int32),
+        rng.integers(0, 2, (w, cap), dtype=np.int32),
+        pool[rng.integers(4, len(pool), w)],
+        rng.random(w) < 0.7,
+        rng.random(w).astype(np.float32),
+        rng.random(w).astype(np.float32),
+    )
+
+
+def _assert_round(args, rounds=(0, 2)):
+    """Bitwise equal to the plain version, and to itself on a second launch."""
+    for r in rounds:
+        got = tops.round_deliver(*args, r, eps=0.01)
+        again = tops.round_deliver(*args, r, eps=0.01)
+        plain = tref.round_step_ref(*args, r, eps=0.01)
+        for a, b, c in zip(got, again, plain):
+            assert torch.equal(_bits(a), _bits(b))
+            assert torch.equal(_bits(a), _bits(c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,cap", [(10, 64), (4096, 64), (10240, 64), (7, 5), (3, 3500)])
+def test_cuda_round_step(cuda_device, w, cap):
+    _assert_round(_cuda(_round_inputs(w, w, cap), cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "w,cap",
+    [
+        (10, 64),  # the engine's main path: two rows a warp
+        (37, 64),  # W not a multiple of the rows a block holds
+        (33, 1),  # C = 1: 32 rows a warp
+        (9, 3),  # C not a multiple of 4: one entry a load
+        (5, 100),
+        (3, 3500),  # rows longer than a warp's loads
+    ],
+)
+def test_cuda_round_step_edge_values(cuda_device, w, cap):
+    """+-0.0 ties in one row, +-inf and NaN certs, ties in cert and src,
+    due = -1 and dead destinations."""
+    _assert_round(_cuda(_round_edge_inputs(w * cap, w, cap), cuda_device), rounds=(0, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_round_step_signed_zero_rows(cuda_device):
+    """A tie at zero with mixed signs gives -0.0 whatever the order."""
+    for row in ([0.0, -0.0], [-0.0, 0.0], [0.0, -0.0, 0.0, -0.0, -0.0], [0.0, 0.0, -0.0, 0.0]):
+        c = len(row)
+        args = _cuda((np.array([row], np.float32), np.zeros((1, c), np.int32),
+                      np.arange(c, 0, -1, dtype=np.int32)[None], np.arange(c, dtype=np.int32)[None],
+                      np.zeros(1, np.float32), np.ones(1, bool), np.zeros(1, np.float32),
+                      np.ones(1, np.float32)), cuda_device)
+        _assert_round(args, rounds=(0,))
+        assert int(_bits(tops.round_deliver(*args, 0, eps=0.0)[1])[0]) == -(2**31)
+
+
+@pytest.mark.cuda
+def test_cuda_round_step_misaligned_queue(cuda_device):
+    """Queue leaves one element past a 16-byte boundary: the kernel must
+    take one entry a load, and give the same bits."""
+    arrays = _round_inputs(4, 12, 64)
+    args = _cuda(arrays, cuda_device)
+    shifted = []
+    for a in args[:4]:
+        flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=cuda_device)
+        flat[1:] = a.reshape(-1)
+        shifted.append(flat[1:].view(a.shape))
+    assert all(t.data_ptr() % 16 != 0 for t in shifted)
+    _assert_round(shifted + args[4:])
+    for a, b in zip(tops.round_deliver(*args, 2, eps=0.01), tops.round_deliver(*shifted, *args[4:], 2, eps=0.01)):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def _assert_ingest(args):

@@ -7,8 +7,9 @@ kernels (``repro.kernels.ops`` in interpret mode, as
 ``tests/test_kernels.py`` runs them) and against ``repro.kernels.ref``.
 Tolerances: K1 sums floats in another order, so ``allclose`` at
 rtol = atol = 1e-5 (the reference's own kernel tolerance); K2 and K3 are
-comparison and permutation logic, so ``array_equal``; K4 at rtol 1e-4 /
-atol 1e-5, the reference's own tolerance for it.
+comparison and permutation logic, so equal bit for bit (floats compared
+as their int32 bit patterns, so -0.0 differs from +0.0); K4 at rtol 1e-4
+/ atol 1e-5, the reference's own tolerance for it.
 
 tests/test_torch_cuda.py holds the CUDA kernels themselves against
 these plain versions on the card.
@@ -42,11 +43,18 @@ def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _bits(a):
+    """Bit pattern of an array: ``assert_array_equal`` calls -0.0 and +0.0 equal."""
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
 def _assert_equal(name, want, got):
+    """Same dtype and the same bits."""
     want = np.asarray(want)
     got = got.numpy()
     assert got.dtype == want.dtype, name
-    np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +159,57 @@ def _round_got(args, r, eps):
     return tops.round_deliver(*[_t(a) for a in args], r, eps=eps)
 
 
+#: rows of one destination, all due and alive, src descending, where the
+#: minimum is a tie at zero with mixed signs
+_SIGNED_ZERO_ROWS = [[0.0, -0.0], [-0.0, 0.0], [0.0, -0.0, 0.0, -0.0, -0.0]]
+
+
+def _signed_zero_inputs(row):
+    c = len(row)
+    return (
+        np.array([row], np.float32), np.zeros((1, c), np.int32),
+        np.arange(c, 0, -1, dtype=np.int32)[None], np.arange(c, dtype=np.int32)[None],
+        np.zeros(1, np.float32), np.ones(1, bool), np.zeros(1, np.float32), np.ones(1, np.float32),
+    )
+
+
+def _round_edge_inputs(seed, w, cap):
+    """Certs from a pool with +-0.0, +-inf and NaN; due in {-1, 0, 1}; src
+    and slot from tiny ranges (negative src too), so that tie chains in
+    cert -> src -> slot are common; about a third of the rows dead."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, -0.5, -0.25], np.float32)
+    return (
+        pool[rng.integers(0, len(pool), (w, cap))],
+        rng.integers(-1, 2, (w, cap), dtype=np.int32),
+        rng.integers(-1, 3, (w, cap), dtype=np.int32),
+        rng.integers(0, 2, (w, cap), dtype=np.int32),
+        pool[rng.integers(4, len(pool), w)],
+        rng.random(w) < 0.7,
+        rng.random(w).astype(np.float32),
+        rng.random(w).astype(np.float32),
+    )
+
+
+def _tie_chain_inputs():
+    """Row 0: cert ties, src decides; row 1: cert and src tie, slot
+    decides; row 2: the same entries, dead; row 3: nothing due this round."""
+    cert = np.array([[-1.0, -1.0, -1.0, -2.0]] * 4, np.float32)
+    due = np.array([[0, 0, 0, 1]] * 3 + [[1, -1, 1, 1]], np.int32)
+    src = np.array([[3, 1, 2, 0], [2, 2, 2, 0], [2, 2, 2, 0], [0, 0, 0, 0]], np.int32)
+    slot = np.array([[0, 5, 2, 0], [7, 4, 6, 0], [7, 4, 6, 0], [0, 0, 0, 0]], np.int32)
+    alive = np.array([True, True, False, True])
+    return cert, due, src, slot, np.zeros(4, np.float32), alive, np.zeros(4, np.float32), np.ones(4, np.float32)
+
+
+_ROUND_EDGE_CASES = {
+    **{f"signed_zero_{i}": (lambda row=row: _signed_zero_inputs(row)) for i, row in enumerate(_SIGNED_ZERO_ROWS)},
+    "tie_chain": _tie_chain_inputs,
+    **{f"pool_w{w}_c{cap}": (lambda w=w, cap=cap: _round_edge_inputs(w * 101 + cap, w, cap))
+       for w, cap in [(13, 1), (11, 3), (9, 100), (21, 64)]},
+}
+
+
 class TestRoundStep:
     """Mirrors tests/test_kernels.py::TestRoundStepKernel: bit-exact."""
 
@@ -195,6 +254,33 @@ class TestRoundStep:
         assert bool(got[7].all())  # every alive worker is credit-active
         for name, a, c in zip(_ROUND_NAMES, ref, got):
             _assert_equal(name, a, c)
+
+    @pytest.mark.parametrize("case", list(_ROUND_EDGE_CASES))
+    def test_edge_cases_bitwise(self, case):
+        """Signed-zero ties, +-inf and NaN certs, tie chains in cert ->
+        src -> slot, due = -1, dead rows, C in {1, 3, 100}, W not a multiple
+        of 8: the port's plain version, the JAX reference, the reference's
+        Pallas kernel (interpret mode) and the mirror of K2's key method
+        (``ref.round_step_key_select``) agree bit for bit."""
+        args = _ROUND_EDGE_CASES[case]()
+        for r in (0, 1):
+            got = _round_got(args, r, 0.01)
+            want = _round_step_ref(*args, jnp.int32(r), eps=0.01)
+            kern = jops.round_deliver(*args, jnp.int32(r), eps=0.01, tile_w=8, interpret=True)
+            for name, a, b, c in zip(_ROUND_NAMES, want, kern, got):
+                _assert_equal(name, a, c)
+                _assert_equal(name, b, c)
+            t = [_t(a) for a in args]
+            mirror = tref.round_step_key_select(t[0], t[1], t[2], t[3], t[5], r)
+            for name, a, c in zip(("best_cert", "best_src", "best_slot", "n_arr"), mirror, got[1:4] + got[5:6]):
+                _assert_equal(name, c.numpy(), a)
+
+    def test_signed_zero_rows(self):
+        """The rows where ``torch.amin`` kept the first zero: -0.0 wins
+        whatever the order, as in the reference."""
+        for row in _SIGNED_ZERO_ROWS:
+            best = _round_got(_signed_zero_inputs(row), 0, 0.0)[1]
+            assert best.numpy().view(np.uint32)[0] == 0x80000000, row
 
     def test_credit_threshold_is_float32(self):
         """credit + speed landing exactly on float32(1 - 1e-6) is active:
@@ -322,11 +408,6 @@ def _ingest_edge_inputs(seed, w, cap, m):
     return leaves(cap) + leaves(m)
 
 
-def _bits(a):
-    a = np.asarray(a)
-    return a.view(np.int32) if a.dtype == np.float32 else a
-
-
 class TestQueueIngestKey:
     """The plain mirror of K3's 128-bit key (``ref.queue_ingest_keys``)
     and of its rank-select (``ref.queue_ingest_rank_select``): the order
@@ -368,7 +449,7 @@ class TestQueueIngestKey:
 
 
 class TestPlans:
-    """How the wrappers split K1 and K3 on the card (pure functions)."""
+    """How the wrappers split K1, K2 and K3 on the card (pure functions)."""
 
     @pytest.mark.parametrize("nw,n", [(10, 2048), (256, 2048), (1, 2048), (1, 180_000), (3, 7), (1, 0), (4096, 1)])
     @pytest.mark.parametrize("sms", [132, 1])
@@ -381,6 +462,28 @@ class TestPlans:
         if sms == 132 and n >= 2048:  # the main shapes come within a worker of the target
             target = tops.EDGE_SCAN_BLOCKS_PER_SM * sms
             assert nw * tiles > min(target - nw, -(-n // tops.EDGE_SCAN_MIN_TILE_ROWS) * nw - 1)
+
+    @pytest.mark.parametrize("nw", [1, 10, 4096, 10240])
+    @pytest.mark.parametrize("cap", [1, 64, 3500])
+    def test_round_step_plan(self, nw, cap):
+        """16-byte loads where C % 4 == 0; the fewest lanes a row that cover
+        it in one pass (16 at C = 64: two rows a warp); W = 10240 puts
+        blocks of 8 warps on every SM."""
+        sms = 132
+        vec, lanes, warps_per_block = tops.round_step_plan(nw, cap, sms)
+        assert vec == (4 if cap % 4 == 0 else 1)
+        assert lanes in (1, 2, 4, 8, 16, 32) and 1 <= warps_per_block <= tops.ROUND_STEP_MAX_WARPS
+        assert lanes == 32 or (lanes * vec >= cap and (lanes // 2) * vec < cap) or lanes == 1
+        rows_per_warp = 32 // lanes
+        warps = -(-nw // rows_per_warp)
+        blocks = -(-warps // warps_per_block)
+        assert rows_per_warp == {1: 32, 64: 2, 3500: 1}[cap]
+        assert blocks * warps_per_block * rows_per_warp >= nw > (blocks - 1) * warps_per_block * rows_per_warp
+        if warps >= tops.ROUND_STEP_MAX_WARPS * sms:  # W = 10240: full blocks on every SM
+            assert warps_per_block == tops.ROUND_STEP_MAX_WARPS and blocks >= sms
+        else:  # smaller W: fewer warps a block, at least one block a SM where W allows
+            assert blocks >= min(warps, sms)
+        assert tops.round_step_plan(nw, cap, sms, aligned=False)[0] == 1
 
     @pytest.mark.parametrize("nw,n", [(10, 65), (4096, 65), (4096, 72), (3, 3520), (7, 2)])
     def test_queue_ingest_plan(self, nw, n):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a hand-written kernel's device time goes, stage by stage, on the
-card: builds copies of ``src/repro_torch/kernels/csrc/edge_scan.cu`` (K1)
-and ``queue_ingest.cu`` (K3) with one stage cut out, and times each copy
+card: builds copies of ``src/repro_torch/kernels/csrc/edge_scan.cu`` (K1),
+``round_step.cu`` (K2) and ``queue_ingest.cu`` (K3) with one stage cut
+out, and times each copy
 through the normal wrapper (``kernels/ops.py``) with the profiler's device
 records. Only the ``full`` copy computes the right result; the others
 exist to be timed. Run from the repository root on a machine with a card
@@ -33,6 +34,13 @@ K1_CUTS = {
     "no_lane_sum": [("    for (int c = tid; c < pass_cells; c += kThreads) {",
                      "    for (int c = tid; c < 0; c += kThreads) {")],
     "empty": [("  const int tile = blockIdx.x;", "  if (n >= 0) return;\n  const int tile = blockIdx.x;")],
+}
+#: K2 copies
+K2_CUTS = {
+    "full": [],
+    "no_reduction": [("  for (int o = L >> 1; o > 0; o >>= 1) {", "  for (int o = 0; o > 0; o >>= 1) {")],
+    "no_queue_loads": [("    if (ok) {\n      Vec<VEC>::load(q_cert", "    if (false) {\n      Vec<VEC>::load(q_cert")],
+    "empty": [("  const int L = 1 << lanes_log2;", "  if (W >= 0) return;\n  const int L = 1 << lanes_log2;")],
 }
 #: K3 copies
 K3_CUTS = {
@@ -124,6 +132,26 @@ def main() -> int:
         ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-5) for a, b in zip(got, ref.edge_scan_ref(xb, wy, w, 8)))
         print(f"ablation K1 W={nw} n={n} d=64 B=8 plan={ops.edge_scan_plan(nw, n, sms)} full_allclose={ok} "
               f"device_ms {timed(k1, lambda: ops.edge_scan(xb, wy, w, num_bins=8))}", flush=True)
+    k2 = build_copies(build, "round_step.cu", K2_CUTS, "round_step_launch")
+    for nw in (10, 4096, 10240):
+        fill = torch.rand((nw, 64), generator=g, device=dev) < 0.6
+        args = (torch.where(fill, -torch.rand((nw, 64), generator=g, device=dev) - 0.01, float("inf")),
+                torch.randint(0, 4, (nw, 64), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, nw, (nw, 64), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 3, (nw, 64), generator=g, device=dev, dtype=torch.int32),
+                -torch.rand((nw,), generator=g, device=dev), torch.rand((nw,), generator=g, device=dev) < 0.8,
+                torch.rand((nw,), generator=g, device=dev), torch.linspace(0.2, 1.0, nw, device=dev))
+        saved = build.load_library
+        build.load_library = lambda: k2["full"]
+        try:
+            got = ops.round_deliver(*args, 2, eps=0.01)
+        finally:
+            build.load_library = saved
+        ok = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                             b.view(torch.int32) if b.dtype == torch.float32 else b)
+                 for a, b in zip(got, ref.round_step_ref(*args, 2, eps=0.01)))
+        print(f"ablation K2 W={nw} C=64 plan={ops.round_step_plan(nw, 64, sms)} full_bitwise_equal={ok} "
+              f"device_ms {timed(k2, lambda: ops.round_deliver(*args, 2, eps=0.01))}", flush=True)
     k3 = build_copies(build, "queue_ingest.cu", K3_CUTS, "queue_ingest_launch")
     for nw, m in [(10, 1), (4096, 1), (4096, 8)]:
         def leaves(k):
