@@ -18,7 +18,9 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              in cert and src, due=-1, dead rows, C=1, C % 4 != 0, C=3500,
              ragged W, leaves off a 16-byte boundary, the signed-zero rows),
              K3 also on edge cases (+-0.0, +-inf, duplicates,
-             due=-1, C+m > 64, C=1, m > C); K4 weight_update (A, c from
+             due=-1, C+m > 64, C=1, m > C), K2 on rows with identical due
+             entries and dues beyond r and K3 on candidate blocks of
+             duplicate pairs (what fault injection gives them); K4 weight_update (A, c from
              scatter_model_slice of a random 256-stump model) at a full
              disk refresh (n=180 000, d=64, B=8) and two ragged shapes;
              times by CUDA events (median of 25 samples of 20 calls) and by
@@ -33,6 +35,19 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              the device's idle share against the main run's wall time;
   exact      the same run on the dense in-flight buffer and dense control
              plane must give bit-identical certificates and history;
+  chaos      the main configuration under the engine's chaos features,
+             each run against main's result: a clean rerun (the baseline
+             for the faulted runs' overhead), a spare joining at round 1
+             and duplication (both bit-identical to main), auto capacity
+             (bit-identical), corruption (rejected, monotone, repeats bit
+             for bit), churn with drops and reorder (kernels bit-identical
+             to their plain versions on the card) and a publisher (rounds at
+             chunk boundaries, falling certificates, the last snapshot the
+             best model); then clean, dup and corrupt runs of 60 rounds in
+             three turns for the faulted round's cost; K1-K3 launches go
+             into the record as launches_chaos;
+  chaos_small_ref  a composed fault plan with a join and a publisher at the
+             small_ref size, on the card (kernels) against the CPU (plain);
   k4_model   K4 over the training split on the best model of main, the
              whole rule and its second half: the margins must match
              predict_margin and margin_delta_oracle;
@@ -319,6 +334,24 @@ def main() -> int:
         if not round_equal(args, 0) or int(bits(ops.round_deliver(*args, 0, eps=0.01)[1])[0]) != -(2**31):
             raise AssertionError(f"K2 signed-zero row {row}: best_cert is not -0.0 or differs from round_step_ref")
         k2_cases += 1
+    # fault injection's inputs: identical due entries (duplicates) and dues
+    # beyond r (reorder); the copies must be cleared together
+    for nw, cap in [(10, 64), (37, 64), (9, 3), (3, 3500)]:
+        qc, _, qs, ql = queue_leaves(nw, cap)
+        late = torch.rand((nw, cap), generator=g, device=dev) < 0.5
+        qd = torch.where(late, 2 + torch.randint(1, 3, (nw, cap), generator=g, device=dev), 2).to(torch.int32)
+        half = cap // 2
+        for t in (qc, qd, qs, ql):
+            t[:, half : 2 * half] = t[:, :half]
+        args = (qc, qd, qs, ql, -torch.rand((nw,), generator=g, device=dev),
+                torch.rand((nw,), generator=g, device=dev) < 0.8, torch.rand((nw,), generator=g, device=dev),
+                torch.rand((nw,), generator=g, device=dev))
+        cleared = ops.round_deliver(*args, 2, eps=0.01)[0]
+        if not (round_equal(args, 2) and round_equal(args, 3)
+                and torch.equal(bits(cleared[:, :half]), bits(cleared[:, half : 2 * half]))):
+            raise AssertionError(f"K2 duplicate entries / late dues W={nw} C={cap}: differs from round_step_ref "
+                                 "or clears one copy only")
+        k2_cases += 2
     log(f"phase kernels K2 round_step edge_cases={k2_cases} bitwise_equal=True repeat=True")
 
     # K3 queue_ingest
@@ -368,6 +401,25 @@ def main() -> int:
             if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, plain)):
                 raise AssertionError(f"K3 edge case W={nw} C={cap} m={m} all_inf={all_inf}: "
                                      "differs from queue_ingest_ref")
+            k3_cases += 1
+    # fault injection's duplicates: the candidate block as pairs of
+    # identical columns (padding where no duplicate was drawn)
+    for nw, cap, m in [(10, 64, 1), (10, 64, 10), (33, 16, 8), (5, 3, 9)]:
+        for base_leaves in (queue_leaves, edge_leaves):
+            qc, qd, qs, ql = base_leaves(nw, cap)
+            cc, cd, cs, cl = edge_leaves(nw, m) if base_leaves is edge_leaves else (
+                torch.where(torch.rand((nw, m), generator=g, device=dev) < 0.6,
+                            -torch.rand((nw, m), generator=g, device=dev) - 0.01, float("inf")),
+                torch.randint(0, 6, (nw, m), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, nw, (nw, m), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 3, (nw, m), generator=g, device=dev, dtype=torch.int32))
+            dup = torch.rand((nw, m), generator=g, device=dev) < 0.7
+            iargs = (qc, qd, qs, ql, torch.cat([cc, torch.where(dup, cc, float("inf"))], 1),
+                     torch.cat([cd, torch.where(dup, cd, -1)], 1), torch.cat([cs, cs], 1), torch.cat([cl, cl], 1))
+            got = ops.queue_ingest(*iargs)
+            plain = ref.queue_ingest_ref(*iargs)
+            if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, plain)):
+                raise AssertionError(f"K3 duplicate-pair block W={nw} C={cap} m={2 * m}: differs from queue_ingest_ref")
             k3_cases += 1
     log(f"phase kernels K3 queue_ingest edge_cases={k3_cases} equal=True")
 
@@ -540,6 +592,195 @@ def main() -> int:
         raise AssertionError(f"exact: the dense in-flight/control run differs from the sparse run at {where}")
     log(f"phase exact ok dense==sparse certificates and history ({len(res.history)} entries, "
         f"{dense.rounds} rounds) dense_wall_s={dense_wall:.3f}")
+
+    # ----------------------------------------------------------------- chaos
+    # the engine's chaos, membership, auto-capacity and publish features at
+    # the main configuration, each run against main's result
+    from repro_torch.core.engine import FaultPlan, MembershipPlan
+    from repro_torch.launch.serving import AdoptionSlot
+
+    class RecordingSlot(AdoptionSlot):
+        """The port's adoption slot, keeping (round, cert) of every publish."""
+
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def publish(self, params, cert, round=0):
+            self.log.append((round, cert))
+            return super().publish(params, cert, round)
+
+    chaos_launches = dict.fromkeys(ENGINE_KERNELS, 0)
+
+    def chaos_run(tag, slot=None, **kw):
+        ecfg = dataclasses.replace(engine_config(cfg.n_workers, ROUNDS, True), **kw)
+        eng = TMSNEngine(worker, ecfg, device="cuda")
+        if slot is not None:
+            eng.attach_publisher(slot)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        run_wall = time.perf_counter() - t0
+        got = dict(ops.LAUNCHES)
+        for k in ENGINE_KERNELS:
+            chaos_launches[k] += got[k]
+        log(f"phase chaos {tag} rounds={out.rounds} wall_s={run_wall:.3f} "
+            f"ms_per_round={run_wall / max(out.rounds, 1) * 1e3:.4f} sent={out.messages_sent} "
+            f"accepted={out.messages_accepted} discarded={out.messages_discarded} evicted={out.messages_evicted} "
+            f"dropped={out.messages_dropped_injected} rejected={out.messages_corrupt_rejected} "
+            f"occupancy_peak={out.inflight_occupancy_peak} capacity_selected={out.inflight_capacity_selected} "
+            f"joined={out.workers_joined} publishes={0 if slot is None else slot.publishes} "
+            f"best_cert={min(out.final_certificates):.6f} launches={json.dumps(got)}")
+        return out, run_wall, got
+
+    def same_as_main(tag, out):
+        if out.final_certificates != res.final_certificates or out.history != res.history:
+            raise AssertionError(f"chaos {tag}: certificates or history differ from main")
+
+    def monotone_finite(tag, out, negative=False):
+        certs_ = np.asarray(out.final_certificates)
+        if out.rounds != ROUNDS or not np.all(np.isfinite(certs_)) or (negative and not np.all(certs_ < 0)):
+            raise AssertionError(f"chaos {tag}: rounds={out.rounds}, certificates {certs_}")
+        for wid in range(cfg.n_workers):
+            trace = [h[2] for h in out.history if h[1] == wid]
+            if not all(np.isfinite(trace)) or any(b > a for a, b in zip(trace, trace[1:])):
+                raise AssertionError(f"chaos {tag}: certificate of worker {wid} rose or is not finite")
+
+    def kernels_launched(tag, got, rounds_run):
+        for k in ("round_step", "queue_ingest"):
+            if got[k] < rounds_run:
+                raise AssertionError(f"chaos {tag}: {k} launched {got[k]} times in {rounds_run} rounds")
+
+    t_chaos = time.perf_counter()
+    clean, clean_wall, got = chaos_run("clean")
+    same_as_main("clean", clean)
+    kernels_launched("clean", got, ROUNDS)
+
+    joined, _, got = chaos_run("join_k1", spare_slots=1, membership=MembershipPlan(joins=((1, cfg.n_workers - 1),)))
+    same_as_main("join_k1", joined)
+    kernels_launched("join_k1", got, ROUNDS)
+    if joined.workers_joined != 0:
+        raise AssertionError(f"chaos join_k1: workers_joined={joined.workers_joined}, want 0")
+
+    dup, dup_wall, got = chaos_run("dup", fault_plan=FaultPlan(duplicate_prob=0.5, seed=5))
+    same_as_main("dup", dup)
+    kernels_launched("dup", got, ROUNDS)
+    if dup.messages_evicted != 0:
+        raise AssertionError(f"chaos dup: {dup.messages_evicted} messages evicted")
+
+    auto, _, got = chaos_run("auto", inflight_capacity="auto")
+    same_as_main("auto", auto)
+    kernels_launched("auto", got, ROUNDS)
+    if auto.inflight_capacity_selected < 1 or auto.messages_evicted != 0:
+        raise AssertionError(f"chaos auto: capacity {auto.inflight_capacity_selected}, "
+                             f"{auto.messages_evicted} evicted")
+
+    corrupt_runs = []
+    for tag in ("corrupt", "corrupt_again"):
+        out, run_wall, got = chaos_run(tag, fault_plan=FaultPlan(corrupt_prob=0.5, seed=3))
+        kernels_launched(tag, got, ROUNDS)
+        monotone_finite(tag, out, negative=True)
+        corrupt_runs.append((out, run_wall))
+    (cor, cor_wall), (cor2, _) = corrupt_runs
+    if cor.messages_corrupt_rejected <= 0:
+        raise AssertionError("chaos corrupt: no certificate was rejected")
+    if (cor.final_certificates, cor.history, cor.messages_corrupt_rejected, cor.messages_accepted) != (
+            cor2.final_certificates, cor2.history, cor2.messages_corrupt_rejected, cor2.messages_accepted):
+        raise AssertionError("chaos corrupt: a second run differs")
+
+    churn_kw = dict(
+        spare_slots=2,
+        membership=MembershipPlan(joins=((50, cfg.n_workers - 2), (120, cfg.n_workers - 1)), leaves=((100, 3),)),
+        fault_plan=FaultPlan(drop_prob=0.05, reorder_max=2, seed=9),
+    )
+    churn, churn_wall, got = chaos_run("churn", **churn_kw)
+    kernels_launched("churn", got, ROUNDS)
+    monotone_finite("churn", churn)
+    if churn.workers_joined != 2 or churn.messages_dropped_injected <= 0:
+        raise AssertionError(f"chaos churn: joined={churn.workers_joined}, dropped={churn.messages_dropped_injected}")
+    churn_plain, _, got = chaos_run("churn_plain", round_step_impl="ref", **churn_kw)
+    if got["round_step"] or got["queue_ingest"]:
+        raise AssertionError(f"chaos churn_plain: K2/K3 launched under round_step_impl='ref': {got}")
+    for f in ("final_certificates", "history", "rounds", "messages_sent", "messages_accepted", "messages_discarded",
+              "messages_evicted", "messages_dropped_injected", "inflight_occupancy_peak", "workers_joined"):
+        if getattr(churn, f) != getattr(churn_plain, f):
+            raise AssertionError(f"chaos churn: {f} differs between K2/K3 and their plain versions")
+
+    slot = RecordingSlot()
+    pub, _, got = chaos_run("publish", slot=slot, publish_every_k=20, rounds_per_dispatch=8)
+    same_as_main("publish", pub)
+    kernels_launched("publish", got, ROUNDS)
+    pub_rounds = [e[0] for e in slot.log]
+    pub_certs = [e[1] for e in slot.log]
+    snap = slot.acquire()
+    if not slot.log or any(r_ % 8 and r_ != pub.rounds for r_ in pub_rounds):
+        raise AssertionError(f"chaos publish: published rounds {pub_rounds}")
+    if any(b >= a for a, b in zip(pub_certs, pub_certs[1:])) or snap.cert != min(pub.final_certificates):
+        raise AssertionError(f"chaos publish: certificates {pub_certs}, final best {min(pub.final_certificates)}")
+    snap_model = StumpModel(*(torch.as_tensor(a, device=dev) for a in snap.params))
+    snap_err = float(error_rate(snap_model, xte, yte))
+    if snap_err != err:
+        raise AssertionError(f"chaos publish: the snapshot's test error {snap_err} is not main's {err}")
+    # a faulted round's cost over a clean one: clean and faulted runs in
+    # turns (host time varies by 15 % between identical runs), medians of
+    # ms per round
+    pair_rounds = 60
+    pair_plans = {"clean": None, "dup": FaultPlan(duplicate_prob=0.5, seed=5),
+                  "corrupt": FaultPlan(corrupt_prob=0.5, seed=3)}
+    per_round = {k: [] for k in pair_plans}
+    for _ in range(3):
+        for k, plan in pair_plans.items():
+            _, run_wall, _ = chaos_run(f"turns_{k}", max_rounds=pair_rounds, fault_plan=plan)
+            per_round[k].append(run_wall / pair_rounds * 1e3)
+    med = {k: statistics.median(v) for k, v in per_round.items()}
+    spread = {k: round(max(v) - min(v), 4) for k, v in per_round.items()}
+    chaos_s = time.perf_counter() - t_chaos
+    overhead = {k: round(v / clean_wall, 4) for k, v in (("dup", dup_wall), ("corrupt", cor_wall),
+                                                         ("churn", churn_wall))}
+    log(f"phase chaos overhead rounds={pair_rounds} turns=3 median_ms_per_round="
+        f"{json.dumps({k: round(v, 4) for k, v in med.items()})} spread_ms={json.dumps(spread)} "
+        f"median_over_clean={json.dumps({k: round(med[k] / med['clean'], 4) for k in ('dup', 'corrupt')})}")
+    log(f"phase chaos ok seconds={chaos_s:.3f} publishes={slot.publishes} published_rounds={pub_rounds} "
+        f"snapshot_test_error={snap_err:.4f} wall_over_clean={json.dumps(overhead)} "
+        f"launches={json.dumps(chaos_launches)}")
+    for k in ENGINE_KERNELS:
+        records[k]["launches_main"] = records[k]["launches"]
+        records[k]["launches_chaos"] = chaos_launches[k]
+        records[k]["launches"] += chaos_launches[k]
+
+    # ------------------------------------------------------- chaos_small_ref
+    small_plan = dict(
+        n_workers=4, max_rounds=40, target_certificate=None, seed=SEED, delay_rounds=1, inflight_capacity=16,
+        control_plane="sparse", gossip_top_k=4, round_step_impl="pallas", fault_spec="", rounds_per_dispatch=8,
+        gossip_mode="dense", spare_slots=1, membership=MembershipPlan(joins=((10, 3),)), publish_every_k=5,
+        fault_plan=FaultPlan(drop_prob=0.1, duplicate_prob=0.3, corrupt_prob=0.2, reorder_max=1, seed=4),
+    )
+    small = {}
+    for name in ("cpu", "cuda"):
+        wk = BatchedSparrowWorker(sxb, sy, scfg, device=name, uniforms=np_uniforms)
+        rec = RecordingSlot()
+        eng = TMSNEngine(wk, EngineConfig(**small_plan), device=name)
+        eng.attach_publisher(rec)
+        ops.reset_launches()
+        small[name] = (eng.run(), rec.log, dict(ops.LAUNCHES))
+    (a, alog, _), (b, blog, blaunch) = small["cpu"], small["cuda"]
+    same_keys = [h[:2] for h in a.history] == [h[:2] for h in b.history]
+    cert_err = max(abs(x[2] - y[2]) for x, y in zip(a.history, b.history))
+    counters = ("messages_dropped_injected", "messages_corrupt_rejected", "workers_joined", "messages_evicted",
+                "messages_sent", "inflight_occupancy_peak")
+    if not (same_keys and np.allclose(a.final_certificates, b.final_certificates, rtol=1e-5, atol=1e-6)
+            and all(getattr(a, f) == getattr(b, f) for f in counters)
+            and [e[0] for e in alog] == [e[0] for e in blog] and blog):
+        raise AssertionError(f"chaos_small_ref: card run differs from the CPU run (same history keys={same_keys}, "
+                             f"max cert err={cert_err:.3g}, counters cpu={[getattr(a, f) for f in counters]} "
+                             f"card={[getattr(b, f) for f in counters]}, published {alog} vs {blog})")
+    if blaunch["round_step"] < b.rounds or blaunch["queue_ingest"] < b.rounds:
+        raise AssertionError(f"chaos_small_ref: K2/K3 launches {blaunch} in {b.rounds} rounds")
+    log(f"phase chaos_small_ref ok rounds={b.rounds} history={len(b.history)} max_cert_err={cert_err:.3g} "
+        f"dropped={b.messages_dropped_injected} rejected={b.messages_corrupt_rejected} joined={b.workers_joined} "
+        f"publishes={len(blog)} published_rounds={[e[0] for e in blog]}")
 
     # -------------------------------------------------------------- k4_model
     # K4 on the model main trained: from zero margins, margin' is the

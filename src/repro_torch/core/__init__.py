@@ -24,7 +24,10 @@ from repro_torch.core.worker import (
     resolve_payload_bytes,
 )
 from repro_torch.core.engine import (
+    AUTO_CAPACITY_HEADROOM,
     EngineConfig,
+    FaultPlan,
+    MembershipPlan,
     TMSNEngine,
     make_engine,
     quantize_latency,
@@ -50,7 +53,10 @@ __all__ = [
     "has_resample_hooks",
     "payload_bytes_from_export",
     "resolve_payload_bytes",
+    "AUTO_CAPACITY_HEADROOM",
     "EngineConfig",
+    "FaultPlan",
+    "MembershipPlan",
     "TMSNEngine",
     "make_engine",
     "quantize_latency",

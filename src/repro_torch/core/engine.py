@@ -29,15 +29,21 @@ hand-written kernels (the value keeps the reference's name so one
 ``REPRO_ROUND_STEP_IMPL`` knob drives both packages); ``"ref"`` takes
 their plain versions. Both are bit-identical.
 
-Not ported yet (queue 1 item 9 of ROADMAP.md), and refused with
-``NotImplementedError``: fault plans, elastic membership (spare slots,
-membership plans), the serving publisher, ``inflight_capacity="auto"``
-and multi-device meshes.
+Chaos and serving features, each off by default and each leaving the
+clean round's ops as they are: a :class:`FaultPlan` (or
+``REPRO_FAULT_PLAN``) drops, duplicates, corrupts and reorders pushed
+messages by a stateless per-edge hash, so a faulted run is the
+reference's faulted run bit for bit; ``spare_slots`` and a
+:class:`MembershipPlan` add joins and leaves; :meth:`TMSNEngine.attach_publisher`
+publishes the best model at the reference's chunk boundaries; and
+``inflight_capacity="auto"`` sizes the queues from a warm-up probe.
+A multi-device mesh is not ported yet (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, NamedTuple
 
@@ -57,7 +63,11 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 #: what the NotImplementedError of an unported feature names
-_DEFERRED = "not ported yet: ROADMAP.md queue 1 item 9 (engine chaos, membership and publish)"
+_DEFERRED = "not ported yet: ROADMAP.md queue 1 item 10 (the sharded engine)"
+
+#: multiplier on the warm-up probe's ``inflight_occupancy_peak`` when
+#: ``inflight_capacity="auto"`` sizes the pending queues
+AUTO_CAPACITY_HEADROOM = 2.0
 
 
 def _env_int(name: str, default: int, special: tuple[str, ...] = ()) -> int | str:
@@ -94,10 +104,12 @@ def _env_float(name: str, default: float) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
-    """Adversarial message-fault schedule of the reference engine. The
-    port parses and validates it (so ``REPRO_FAULT_PLAN`` behaves the
-    same in both packages) but does not inject faults yet: an active
-    plan raises ``NotImplementedError``."""
+    """Adversarial message-fault schedule, applied to the push
+    candidates of every round (see :func:`_inject_faults`).
+    Probabilities are per directed edge per round; every mask comes from
+    :func:`_fault_hash`, so a plan gives the reference's faults bit for
+    bit. ``reorder_max`` needs the pending queues; the partition window
+    drops cross-pod edges and is inert on one device."""
 
     drop_prob: float = 0.0
     duplicate_prob: float = 0.0
@@ -120,9 +132,11 @@ class FaultPlan:
 
 @dataclasses.dataclass(frozen=True)
 class MembershipPlan:
-    """Elastic-membership schedule of the reference engine (1-based
-    ``(round, slot)`` joins and ``(round, worker)`` leaves); accepted as
-    a type here, refused by the engine until it is ported."""
+    """Elastic-membership schedule: ``(round, slot)`` joins into the
+    spare slots ``[n_workers - spare_slots, n_workers)`` with 1-based
+    rounds (a join at round 1 is a member from the start), and
+    ``(round, worker)`` leaves, folded into ``fail_round`` by ``min``.
+    A joiner's laggard credit restarts at 0 on its join round."""
 
     joins: tuple = ()
     leaves: tuple = ()
@@ -178,6 +192,125 @@ def _parse_fault_spec(spec: str) -> FaultPlan | None:
     return plan if plan.active else None
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, without an int64 overflow: the product is taken in two
+    16-bit halves of ``x``."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _fault_hash(r, dst: torch.Tensor, src: torch.Tensor, seed: int, salt: int) -> torch.Tensor:
+    """Counter-based per-edge hash (murmur-style finalizer) over
+    ``(round, dst gid, src gid, plan seed, salt)``: the reference's
+    uint32 arithmetic in int64, masked to 32 bits after every step, so
+    the values are the reference's. Stateless and elementwise."""
+    dev = dst.device
+    r = torch.as_tensor(r, device=dev).to(torch.int64) & _U32
+    x = (
+        _mul32(r, 0x9E3779B1)
+        + _mul32(dst.to(torch.int64) & _U32, 0x85EBCA77)
+        + _mul32(src.to(torch.int64) & _U32, 0xC2B2AE3D)
+        + ((seed * 0x27D4EB2F + salt * 0x165667B1) & _U32)
+    ) & _U32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _fault_unit(r, dst: torch.Tensor, src: torch.Tensor, seed: int, salt: int) -> torch.Tensor:
+    """Uniform [0, 1] float32 per edge: the hash rounded to the nearest
+    float32 (as XLA converts uint32), times 2**-32; it can equal 1.0."""
+    return _fault_hash(r, dst, src, seed, salt).to(torch.float32) * np.float32(1.0 / 4294967296.0)
+
+
+def _below(unit: torch.Tensor, prob: float) -> torch.Tensor:
+    """``unit < float32(prob)``: the comparison the reference makes."""
+    return unit < torch.tensor(np.float32(prob), device=unit.device)
+
+
+def _inject_faults(
+    plan: FaultPlan,
+    pod_of,
+    r,
+    dst_gids: torch.Tensor,
+    src_gids: torch.Tensor,
+    cert: torch.Tensor,
+    due,
+    dst_cert: torch.Tensor,
+    depth: int,
+):
+    """Apply a :class:`FaultPlan` to one round's push candidates.
+
+    ``cert`` is (W_local, m) float32 with +inf marking invalid entries,
+    ``src_gids`` (W_local, m) global source ids, ``dst_gids`` (W_local,)
+    global destination ids, ``dst_cert`` (W_local,) the destinations'
+    post-scan certificates, ``due`` (W_local, m) absolute delivery
+    rounds or ``None`` on the dense buffer.
+
+    Order, as in the reference: drop (and the pod partition) -> corrupt
+    -> soundness check (reject a non-finite cert, or one not below the
+    destination's: monotone destination certificates make it forever
+    unacceptable) -> due jitter -> duplicate mask.
+
+    Returns ``(cert, due, dup_mask, n_dropped, n_rejected)``."""
+    valid0 = torch.isfinite(cert)
+    dst2 = dst_gids.unsqueeze(1)
+    seed = int(plan.seed)
+    drop = torch.zeros(cert.shape, dtype=torch.bool, device=cert.device)
+    if plan.drop_prob > 0.0:
+        drop = _below(_fault_unit(r, dst2, src_gids, seed, 1), plan.drop_prob)
+    if pod_of is not None and 0 <= plan.partition_start < plan.partition_stop:
+        in_window = plan.partition_start <= int(r) < plan.partition_stop
+        cross = pod_of[dst_gids.long()].unsqueeze(1) != pod_of[src_gids.long()]
+        drop = drop | (cross & in_window)
+    drop = drop & valid0
+    n_dropped = drop.sum(dtype=torch.int32)
+
+    live = valid0 & ~drop
+    if plan.corrupt_prob > 0.0:
+        cor = live & _below(_fault_unit(r, dst2, src_gids, seed, 2), plan.corrupt_prob)
+        sel = _fault_hash(r, dst2, src_gids, seed, 3) % 3
+        bad = torch.where(
+            sel == 0,
+            torch.tensor(float("nan"), device=cert.device),
+            torch.where(sel == 1, torch.tensor(float("-inf"), device=cert.device),
+                        cert + np.float32(1e6)),
+        )
+        cert = torch.where(cor, bad, cert)
+    unsound = live & (~torch.isfinite(cert) | (cert >= dst_cert.unsqueeze(1)))
+    n_rejected = unsound.sum(dtype=torch.int32)
+
+    keep = live & ~unsound
+    cert = torch.where(keep, cert, _inf(cert))
+    if due is not None:
+        if plan.reorder_max > 0:
+            jit = (_fault_hash(r, dst2, src_gids, seed, 4) % (plan.reorder_max + 1)).to(torch.int32)
+            due = torch.minimum(due + jit, _i32(int(r) + depth, due))
+        due = torch.where(keep, due, _i32(-1, due))
+    dup = torch.zeros(cert.shape, dtype=torch.bool, device=cert.device)
+    if plan.duplicate_prob > 0.0:
+        dup = keep & _below(_fault_unit(r, dst2, src_gids, seed, 5), plan.duplicate_prob)
+    return cert, due, dup, n_dropped, n_rejected
+
+
+def _duplicate_columns(dup: torch.Tensor, cert, src, due, slot):
+    """Append the duplicated candidates as extra columns: an identical
+    (cert, src, due, slot) entry where ``dup``, padding elsewhere."""
+    return (
+        torch.cat([cert, torch.where(dup, cert, _inf(cert))], dim=1),
+        torch.cat([src, src], dim=1),
+        torch.cat([due, torch.where(dup, due, _i32(-1, due))], dim=1),
+        torch.cat([slot, slot], dim=1),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Every field of the reference's ``EngineConfig``, with the same
@@ -218,8 +351,8 @@ class EngineConfig:
     )
     #: 0 = dense (W, W, D) in-flight buffer (the exact oracle); C >= 1 =
     #: bounded (W, C) pending queues, evicting worst-certificate-first
-    #: (bit-identical to dense while nothing is evicted); "auto" is not
-    #: ported yet
+    #: (bit-identical to dense while nothing is evicted); "auto" sizes C
+    #: from a warm-up probe (peak occupancy x AUTO_CAPACITY_HEADROOM)
     inflight_capacity: Any = dataclasses.field(
         default_factory=lambda: _env_int("REPRO_INFLIGHT_CAPACITY", 0, special=("auto",))
     )
@@ -235,14 +368,21 @@ class EngineConfig:
     control_plane: str = dataclasses.field(
         default_factory=lambda: _env_str("REPRO_CONTROL_PLANE", "dense")
     )
+    #: trailing worker rows allocated as masked-out spares that a
+    #: MembershipPlan join can activate mid-run
     spare_slots: int = dataclasses.field(
         default_factory=lambda: _env_int("REPRO_SPARE_SLOTS", 0)
     )
+    #: optional MembershipPlan (joins into spares, leaves)
     membership: Any = None
+    #: REPRO_FAULT_PLAN spec, parsed by _parse_fault_spec; ``fault_plan``
+    #: (a FaultPlan) wins over it
     fault_spec: str = dataclasses.field(
         default_factory=lambda: _env_str("REPRO_FAULT_PLAN", "")
     )
     fault_plan: Any = None
+    #: publish cadence in rounds with a publisher attached (0 = off)
+    #: and the improvement a new publish needs
     publish_every_k: int = dataclasses.field(
         default_factory=lambda: _env_int("REPRO_PUBLISH_EVERY_K", 0)
     )
@@ -290,6 +430,9 @@ def _queue_push(
     delay_rows: torch.Tensor,
     r: int,
     depth: int,
+    dst_cert: torch.Tensor | None = None,
+    fault: FaultPlan | None = None,
+    pod_of=None,
 ):
     """Push this round's broadcast candidates into every destination's
     pending queue, evicting worst-certificate-first.
@@ -300,9 +443,13 @@ def _queue_push(
     ``(W, C + min(C+1, W))``; eviction keeps the smallest C by
     (cert, src, due), ties dropping the later column.
 
-    Returns ``(queue, n_pushed, n_evicted, occ_pre_max)`` with LOGICAL
-    counters: ``n_evicted == 0`` over a run certifies it bit-identical
-    to the dense oracle."""
+    Returns ``(queue, n_pushed, n_evicted, occ_pre_max, n_dropped,
+    n_rejected)`` with LOGICAL counters: ``n_evicted == 0`` over a run
+    certifies it bit-identical to the dense oracle. With ``fault`` set,
+    :func:`_inject_faults` runs on the candidate block after the
+    pre-filter, duplicates become extra columns, and the occupancy and
+    eviction accounting counts what reached the merge. The fault
+    counters are 0 without a plan."""
     w = score.shape[0]
     wl, cap = queue.cert.shape
     k = min(cap + 1, w)
@@ -317,6 +464,15 @@ def _queue_push(
     cand_src = order.unsqueeze(0).expand(wl, k)
     cand_due = torch.where(val, r + torch.gather(delay_rows, 1, cand_src.long()), _i32(-1, score))
     cand_slot = torch.where(val, _i32(r % depth, score), _i32(0, score))
+    n_dropped = n_rejected = 0
+    if fault is not None:
+        cand_cert, cand_due, dup, n_dropped, n_rejected = _inject_faults(
+            fault, pod_of, r, local_gids, cand_src, cand_cert, cand_due, dst_cert, depth
+        )
+        if fault.duplicate_prob > 0.0:
+            cand_cert, cand_src, cand_due, cand_slot = _duplicate_columns(
+                dup, cand_cert, cand_src, cand_due, cand_slot
+            )
 
     m_cert = torch.cat([queue.cert, cand_cert], dim=1)
     m_src = torch.cat([queue.src, cand_src], dim=1)
@@ -332,13 +488,18 @@ def _queue_push(
     n_bcast = torch.isfinite(score).sum(dtype=torch.int32)
     self_b = torch.isfinite(score[local_gids.long()]).to(torch.int32)
     n_cand = torch.where(alive, n_bcast - self_b, _i32(0, score))
-    occ_pre = torch.isfinite(queue.cert).sum(dim=1, dtype=torch.int32) + n_cand
+    # under faults, count what reached the merge: a dropped message is
+    # not an eviction
+    n_off = n_cand if fault is None else torch.isfinite(cand_cert).sum(dim=1, dtype=torch.int32)
+    occ_pre = torch.isfinite(queue.cert).sum(dim=1, dtype=torch.int32) + n_off
     occ_after = torch.isfinite(new.cert).sum(dim=1, dtype=torch.int32)
     return (
         new,
         n_cand.sum(dtype=torch.int32),
         (occ_pre - occ_after).sum(dtype=torch.int32),
         occ_pre.max(),
+        n_dropped,
+        n_rejected,
     )
 
 
@@ -370,36 +531,51 @@ def _queue_push_candidates(
     r: int,
     depth: int,
     impl: str,
+    dst_cert: torch.Tensor | None = None,
+    fault: FaultPlan | None = None,
+    pod_of=None,
 ):
     """Sparse-control ingest: merge an explicit candidate list — (m,)
     certificates and source ids, padded with id >= W / +inf — into the
     pending queues through kernel K3 (``impl="pallas"``) or its plain
     version (``"ref"``), under the same order as :func:`_queue_push`.
+    A ``fault`` plan applies as in :func:`_queue_push`; its duplicates
+    double K3's candidate block.
 
-    Returns ``(queue, n_pushed, n_evicted, occ_pre_max)``."""
+    Returns ``(queue, n_pushed, n_evicted, occ_pre_max, n_dropped,
+    n_rejected)``."""
     w = delay_rows.shape[1]
     wl, m = delay_rows.shape[0], cand_ids.shape[0]
     ids_c = torch.clamp(cand_ids, 0, w - 1).to(torch.int32)
     val = _candidate_valid(cand_cert, cand_ids, alive, local_gids, w)
-    c_cert = torch.where(val, cand_cert.unsqueeze(0), _inf(cand_cert)).contiguous()
-    c_src = ids_c.unsqueeze(0).expand(wl, m).contiguous()
-    c_due = torch.where(
-        val, r + torch.gather(delay_rows, 1, c_src.long()), _i32(-1, cand_cert)
-    ).contiguous()
-    c_slot = torch.where(val, _i32(r % depth, cand_cert), _i32(0, cand_cert)).contiguous()
+    c_cert = torch.where(val, cand_cert.unsqueeze(0), _inf(cand_cert))
+    c_src = ids_c.unsqueeze(0).expand(wl, m)
+    c_due = torch.where(val, r + torch.gather(delay_rows, 1, c_src.long()), _i32(-1, cand_cert))
+    c_slot = torch.where(val, _i32(r % depth, cand_cert), _i32(0, cand_cert))
+    n_dropped = n_rejected = 0
+    if fault is not None:
+        c_cert, c_due, dup, n_dropped, n_rejected = _inject_faults(
+            fault, pod_of, r, local_gids, c_src, c_cert, c_due, dst_cert, depth
+        )
+        if fault.duplicate_prob > 0.0:
+            c_cert, c_src, c_due, c_slot = _duplicate_columns(dup, c_cert, c_src, c_due, c_slot)
     ingest = kref.queue_ingest_ref if impl == "ref" else kops.queue_ingest
     q_cert, q_due, q_src, q_slot = ingest(
-        queue.cert, queue.due, queue.src, queue.slot, c_cert, c_due, c_src, c_slot
+        queue.cert, queue.due, queue.src, queue.slot,
+        c_cert.contiguous(), c_due.contiguous(), c_src.contiguous(), c_slot.contiguous(),
     )
     new = PendingQueue(cert=q_cert, src=q_src, due=q_due, slot=q_slot)
     n_cand = val.sum(dim=1, dtype=torch.int32)
-    occ_pre = torch.isfinite(queue.cert).sum(dim=1, dtype=torch.int32) + n_cand
+    n_off = n_cand if fault is None else torch.isfinite(c_cert).sum(dim=1, dtype=torch.int32)
+    occ_pre = torch.isfinite(queue.cert).sum(dim=1, dtype=torch.int32) + n_off
     occ_after = torch.isfinite(new.cert).sum(dim=1, dtype=torch.int32)
     return (
         new,
         n_cand.sum(dtype=torch.int32),
         (occ_pre - occ_after).sum(dtype=torch.int32),
         occ_pre.max(),
+        n_dropped,
+        n_rejected,
     )
 
 
@@ -410,20 +586,34 @@ def _dense_push_candidates(
     alive: torch.Tensor,
     local_gids: torch.Tensor,
     delay_rows: torch.Tensor,
+    r: int = 0,
+    dst_cert: torch.Tensor | None = None,
+    fault: FaultPlan | None = None,
+    pod_of=None,
 ):
     """Sparse-control push into the dense ``(W_local, W, D)`` buffer:
     write each valid candidate's certificate at ``[dst, src, delay-1]``.
-    Returns ``(inflight, n_pushed)``."""
+    With a ``fault`` plan, dropped and rejected candidates are not
+    written (a duplicate would write the same cell twice: a no-op).
+    Returns ``(inflight, n_pushed, n_dropped, n_rejected)``."""
     w = delay_rows.shape[1]
     wl, m = delay_rows.shape[0], cand_ids.shape[0]
     ids_c = torch.clamp(cand_ids, 0, w - 1).long()
     val = _candidate_valid(cand_cert, cand_ids, alive, local_gids, w)
     src2 = ids_c.unsqueeze(0).expand(wl, m)
+    cert2 = cand_cert.unsqueeze(0).expand(wl, m)
+    n_dropped = n_rejected = 0
+    if fault is not None:
+        cert2, _, _, n_dropped, n_rejected = _inject_faults(
+            fault, pod_of, r, local_gids, src2.to(torch.int32), torch.where(val, cert2, _inf(cert2)),
+            None, dst_cert, 0,
+        )
+        val = val & torch.isfinite(cert2)
     d = torch.gather(delay_rows, 1, src2)
     rows = torch.arange(wl, device=inflight.device).unsqueeze(1).expand(wl, m)
     out = inflight.clone()
-    out[rows[val], src2[val], (d[val] - 1).long()] = cand_cert.unsqueeze(0).expand(wl, m)[val]
-    return out, val.sum(dtype=torch.int32)
+    out[rows[val], src2[val], (d[val] - 1).long()] = cert2[val]
+    return out, val.sum(dtype=torch.int32), n_dropped, n_rejected
 
 
 class EngineState(NamedTuple):
@@ -443,6 +633,8 @@ class EngineState(NamedTuple):
     cost_total: torch.Tensor  # () f32
     evicted: torch.Tensor  # () i32 capacity evictions (0 on the dense path)
     occ_peak: torch.Tensor  # () i32 peak pre-eviction queue occupancy
+    dropped_inj: torch.Tensor  # () i32 messages dropped by FaultPlan injection
+    corrupt_rej: torch.Tensor  # () i32 candidates rejected by the soundness check
 
 
 class RoundInfo(NamedTuple):
@@ -502,28 +694,22 @@ class TMSNEngine:
             raise ValueError(f"publish_every_k must be >= 0, got {config.publish_every_k}")
         if not config.publish_eps >= 0.0:  # also rejects NaN
             raise ValueError(f"publish_eps must be >= 0, got {config.publish_eps}")
-        if not 0 <= int(config.spare_slots) < w:
-            raise ValueError(
-                f"spare_slots must be in [0, n_workers), got {config.spare_slots} (n_workers={w})"
-            )
-        fplan = config.fault_plan
-        if fplan is None:
-            fplan = _parse_fault_spec(config.fault_spec)
-        elif not isinstance(fplan, FaultPlan):
-            raise ValueError(f"fault_plan must be a FaultPlan, got {type(fplan).__name__}")
-
-        # --- features of the reference engine this port does not carry yet
-        if config.inflight_capacity == "auto":
-            raise NotImplementedError(f"inflight_capacity='auto' is {_DEFERRED}")
-        if int(config.spare_slots) > 0 or config.membership is not None:
-            raise NotImplementedError(f"elastic membership (spare_slots, membership) is {_DEFERRED}")
-        if fplan is not None and fplan.active:
-            raise NotImplementedError(f"fault injection (fault_spec, fault_plan) is {_DEFERRED}")
         if config.mesh is not None and getattr(config.mesh, "size", 1) > 1:
             raise NotImplementedError(f"a multi-device mesh is {_DEFERRED}")
+        #: serving publisher (see attach_publisher); None keeps run() free
+        #: of the per-boundary certificate fetch
+        self._publisher: Any = None
+        self._published_cert = float("inf")
+        self._next_publish_round = 0
 
         self._control_sparse = config.control_plane == "sparse"
-        self._capacity = int(config.inflight_capacity)
+        #: 0 = dense (W, W, D) buffer; C >= 1 = pending queues; None =
+        #: "auto", resolved by a warm-up probe in run()
+        self._capacity: int | None = (
+            None if config.inflight_capacity == "auto" else int(config.inflight_capacity)
+        )
+        #: capacity the auto probe selected (0 when capacity is explicit)
+        self._auto_selected = 0
 
         dev = self.device
         delay = np.asarray(config.delay_rounds)
@@ -549,14 +735,138 @@ class TMSNEngine:
         )
         if fail.shape != (w,):
             raise ValueError(f"fail_round must be ({w},), got {fail.shape}")
+
+        # --- elastic membership: spares, joins, leaves
+        spares = int(config.spare_slots)
+        if not 0 <= spares < w:
+            raise ValueError(f"spare_slots must be in [0, n_workers), got {spares} (n_workers={w})")
+        never = np.iinfo(np.int32).max
+        join_round = np.zeros(w, np.int64)
+        if spares:
+            join_round[w - spares :] = never  # a spare without a join stays masked
+        plan = config.membership
+        if plan is not None:
+            if not isinstance(plan, MembershipPlan):
+                raise ValueError(f"membership must be a MembershipPlan, got {type(plan).__name__}")
+            seen_slots: set[int] = set()
+            for k, slot in plan.joins:
+                k, slot = int(k), int(slot)
+                if k < 1:
+                    raise ValueError(f"membership join rounds are 1-based, got {k}")
+                if not w - spares <= slot < w:
+                    raise ValueError(
+                        f"membership join slot {slot} is not a spare "
+                        f"(spare region is [{w - spares}, {w}), spare_slots={spares})"
+                    )
+                if slot in seen_slots:
+                    raise ValueError(f"membership joins slot {slot} twice")
+                seen_slots.add(slot)
+                join_round[slot] = k - 1  # 1-based: k=1 is alive from round 0
+            for k, leaver in plan.leaves:
+                k, leaver = int(k), int(leaver)
+                if k < 1:
+                    raise ValueError(f"membership leave rounds must be >= 1, got {k}")
+                if not 0 <= leaver < w:
+                    raise ValueError(f"membership leave worker {leaver} out of range [0, {w})")
+                fail[leaver] = min(int(fail[leaver]), k)
+        self._join_round_np = join_round
+        self._join_round = torch.as_tensor(join_round.astype(np.int32), device=dev)
+        #: joins and spares change the round's alive/credit ops; without
+        #: them the round keeps the clean path's ops
+        self._has_joins = spares > 0 or (plan is not None and bool(plan.joins))
         self._fail_round = torch.as_tensor(fail.astype(np.int32), device=dev)
+
+        # --- fault injection
+        fplan = config.fault_plan
+        if fplan is None:
+            fplan = _parse_fault_spec(config.fault_spec)
+        elif not isinstance(fplan, FaultPlan):
+            raise ValueError(f"fault_plan must be a FaultPlan, got {type(fplan).__name__}")
+        if fplan is not None:
+            for fname in ("drop_prob", "duplicate_prob", "corrupt_prob"):
+                p = getattr(fplan, fname)
+                if not 0.0 <= p <= 1.0:
+                    raise ValueError(f"FaultPlan.{fname} must be in [0, 1], got {p}")
+            if fplan.reorder_max < 0:
+                raise ValueError(f"FaultPlan.reorder_max must be >= 0, got {fplan.reorder_max}")
+            if fplan.reorder_max > 0 and self._capacity == 0:
+                raise ValueError(
+                    "FaultPlan.reorder_max > 0 needs the pending-queue in-flight "
+                    "state (inflight_capacity >= 1 or 'auto'): the dense (W, W, D) "
+                    "buffer derives ring slots from the static delay matrix, so a "
+                    "jittered delivery would fetch a wrong-generation payload"
+                )
+            if not fplan.active:
+                fplan = None  # an all-zero plan is the clean run
+        self._fault: FaultPlan | None = fplan
+        #: pod of each worker on a pod mesh; None on one device, which
+        #: makes the partition window inert
+        self._pod_of = None
 
         self._has_resample = has_resample_hooks(worker)
         self._payload_bytes = resolve_payload_bytes(worker, w, config.seed)
 
     def attach_publisher(self, slot: Any) -> None:
-        """The serving publisher of the reference engine."""
-        raise NotImplementedError(f"attach_publisher is {_DEFERRED}")
+        """Register a snapshot publisher: anything with a
+        ``publish(params, cert, round)`` method, canonically a
+        :class:`repro_torch.launch.serving.AdoptionSlot`. At the first
+        chunk boundary (a multiple of ``rounds_per_dispatch``, the last
+        round, or a target stop) at or after every ``publish_every_k``-th
+        round, :meth:`run` publishes a host copy of the best live
+        worker's model when its certificate improved by more than
+        ``publish_eps`` since the last publish, and once more at the end."""
+        if self.config.publish_every_k < 1:
+            raise ValueError(
+                "attach_publisher requires publish_every_k >= 1 "
+                f"(got {self.config.publish_every_k}); set it in EngineConfig "
+                "or via REPRO_PUBLISH_EVERY_K"
+            )
+        self._publisher = slot
+
+    def _maybe_publish(self, state: EngineState, rounds: int, final: bool = False) -> None:
+        """Publish the best-certificate model if due and improved."""
+        if self._publisher is None:
+            return
+        if not final and rounds < self._next_publish_round:
+            return
+        k = int(self.config.publish_every_k)
+        while self._next_publish_round <= rounds:
+            self._next_publish_round += k
+        live = np.where(state.alive.cpu().numpy(), state.certs.cpu().numpy(), np.inf)
+        best = int(np.argmin(live))
+        best_cert = float(live[best])
+        if not np.isfinite(best_cert):
+            return
+        if best_cert >= self._published_cert - float(self.config.publish_eps):
+            return
+        models = self.worker.export_models(state.worker)
+        params = tree_map(lambda a: a[best].detach().cpu().numpy().copy(), models)
+        self._publisher.publish(params, cert=best_cert, round=rounds)
+        self._published_cert = best_cert
+
+    def _resolve_auto_capacity(self) -> None:
+        """Resolve ``inflight_capacity="auto"``: run a short warm-up
+        probe at an explicit capacity, doubling it until nothing is
+        evicted, then size the run's queues at the probe's peak
+        occupancy times :data:`AUTO_CAPACITY_HEADROOM`. The probe is the
+        same engine on the same device with every other knob kept."""
+        cfg = self.config
+        w = cfg.n_workers
+        warmup = min(max(2 * self._depth + 2, 8), cfg.max_rounds)
+        hard_max = w * self._depth  # every (src, pending-round) pair
+        probe_cap = min(max(64, 2 * self._depth), hard_max)
+        while True:
+            probe_cfg = dataclasses.replace(
+                cfg, inflight_capacity=int(probe_cap), max_rounds=warmup,
+                target_certificate=None, record_history=False,
+            )
+            res = make_engine(self.worker, probe_cfg, self.device).run()
+            if res.messages_evicted == 0 or probe_cap >= hard_max:
+                break
+            probe_cap = min(2 * probe_cap, hard_max)
+        peak = max(int(res.inflight_occupancy_peak), 0)
+        self._capacity = max(1, math.ceil(peak * AUTO_CAPACITY_HEADROOM))
+        self._auto_selected = self._capacity
 
     # ------------------------------------------------------------------
     def _init_state(self) -> EngineState:
@@ -569,10 +879,14 @@ class TMSNEngine:
         else:
             inflight = torch.full((w, w, d), float("inf"), dtype=torch.float32, device=dev)
         zi = torch.zeros((), dtype=torch.int32, device=dev)
+        if self._has_joins:
+            alive0 = torch.as_tensor(self._join_round_np <= 0, device=dev)
+        else:
+            alive0 = torch.ones((w,), dtype=torch.bool, device=dev)
         return EngineState(
             worker=wstate,
             certs=self.worker.certificates(wstate).to(torch.float32),
-            alive=torch.ones((w,), dtype=torch.bool, device=dev),
+            alive=alive0,
             credit=torch.zeros((w,), dtype=torch.float32, device=dev),
             clock=torch.zeros((w,), dtype=torch.float32, device=dev),
             inflight=inflight,
@@ -584,6 +898,8 @@ class TMSNEngine:
             cost_total=torch.zeros((), dtype=torch.float32, device=dev),
             evicted=zi,
             occ_peak=zi,
+            dropped_inj=zi,
+            corrupt_rej=zi,
         )
 
     def _deliver_sparse(self, queue: PendingQueue, certs0, alive, credit, r: int):
@@ -622,13 +938,21 @@ class TMSNEngine:
         w, depth = cfg.n_workers, self._depth
         r = state.round
         dst_idx = torch.arange(w, device=self.device)
-        alive = state.alive & (r < self._fail_round)
+        if self._has_joins:
+            # joins are sticky and compose with fail-stop; a joiner's
+            # credit restarts at 0 on its join round (it accrued while
+            # masked); its worker rows were never touched while masked
+            alive = (state.alive | (r >= self._join_round)) & (r < self._fail_round)
+            credit_in = torch.where(r == self._join_round, 0.0, state.credit)
+        else:
+            alive = state.alive & (r < self._fail_round)
+            credit_in = state.credit
         certs0 = state.certs
 
         # --- 1.+2.(+3. credit) deliver arrivals due this round ------------
         if self._capacity:
             (inflight, best_cert, best_src, sent_slot, take, n_arrivals, credit,
-             active) = self._deliver_sparse(state.inflight, certs0, alive, state.credit, r)
+             active) = self._deliver_sparse(state.inflight, certs0, alive, credit_in, r)
         else:
             arr = state.inflight[:, :, 0]  # (dst, src) certs
             arr_live = torch.where(alive.unsqueeze(1), arr, _inf(arr))
@@ -641,7 +965,7 @@ class TMSNEngine:
                 [state.inflight[:, :, 1:], torch.full((w, w, 1), float("inf"), device=self.device)],
                 dim=2,
             )
-            credit = state.credit + self._speed_norm
+            credit = credit_in + self._speed_norm
             active = alive & (credit >= 1.0 - 1e-6)
             credit = torch.where(active, credit - 1.0, credit)
         n_taken = take.sum(dtype=torch.int32)
@@ -674,7 +998,9 @@ class TMSNEngine:
         improved = fired & improves(certs_pre, certs, 0.0) & scan_mask
         n_evicted = torch.zeros((), dtype=torch.int32, device=self.device)
         occ_pre_max = n_evicted
+        n_dropped = n_rejected = 0
         gids = dst_idx.to(torch.int32)
+        faults = dict(dst_cert=certs, fault=self._fault, pod_of=self._pod_of)
         if self._control_sparse:
             # only the top-k improvers are offered; under uniform delay
             # the runner-ups could never have been accepted
@@ -683,19 +1009,35 @@ class TMSNEngine:
             cand_ids = torch.where(validk, rows.to(torch.int32), _i32(w, certs))
             cand_certs = torch.where(validk, certs[rows], _inf(certs))
             if self._capacity:
-                inflight, n_pushed, n_evicted, occ_pre_max = _queue_push_candidates(
+                (inflight, n_pushed, n_evicted, occ_pre_max, n_dropped,
+                 n_rejected) = _queue_push_candidates(
                     inflight, cand_certs, cand_ids, alive, gids, self._delay_t, r, depth,
-                    cfg.round_step_impl,
+                    cfg.round_step_impl, **faults,
                 )
             else:
-                inflight, n_pushed = _dense_push_candidates(
-                    inflight, cand_certs, cand_ids, alive, gids, self._delay_t
+                inflight, n_pushed, n_dropped, n_rejected = _dense_push_candidates(
+                    inflight, cand_certs, cand_ids, alive, gids, self._delay_t, r, **faults
                 )
         elif self._capacity:
-            inflight, n_pushed, n_evicted, occ_pre_max = _queue_push(
+            (inflight, n_pushed, n_evicted, occ_pre_max, n_dropped,
+             n_rejected) = _queue_push(
                 inflight, torch.where(improved, certs, _inf(certs)), alive, gids,
-                self._delay_t, r, depth,
+                self._delay_t, r, depth, **faults,
             )
+        elif self._fault is not None:
+            # faulted dense push: the push mask as a per-edge (dst, src)
+            # certificate matrix, so single edges can be dropped, corrupted
+            # or rejected; n_pushed counts the logical sends
+            push2 = improved.view(1, w) & alive.view(w, 1) & (dst_idx.view(w, 1) != dst_idx.view(1, w))
+            cert_mat = torch.where(push2, certs.view(1, w), _inf(certs))
+            src_mat = gids.view(1, w).expand(w, w)
+            cert_mat, _, _, n_dropped, n_rejected = _inject_faults(
+                self._fault, self._pod_of, r, gids, src_mat, cert_mat, None, certs, depth
+            )
+            d_idx = torch.arange(depth, device=self.device).view(1, 1, depth)
+            push_mask = torch.isfinite(cert_mat).unsqueeze(2) & (d_idx == (self._delay_t.unsqueeze(2) - 1))
+            inflight = torch.where(push_mask, cert_mat.unsqueeze(2), inflight)
+            n_pushed = push2.sum(dtype=torch.int32)
         else:
             d_idx = torch.arange(depth, device=self.device).view(1, 1, depth)
             # push_mask[dst, src, d] — delay is indexed [src, dst]
@@ -735,6 +1077,8 @@ class TMSNEngine:
             cost_total=state.cost_total + cost.sum(),
             evicted=state.evicted + n_evicted,
             occ_peak=torch.maximum(state.occ_peak, occ_pre_max),
+            dropped_inj=state.dropped_inj if self._fault is None else state.dropped_inj + n_dropped,
+            corrupt_rej=state.corrupt_rej if self._fault is None else state.corrupt_rej + n_rejected,
         )
         info = RoundInfo(certs=certs, changed=take | improved, clock=clock, alive=alive)
         return new_state, info
@@ -742,27 +1086,41 @@ class TMSNEngine:
     # ------------------------------------------------------------------
     def run(self) -> SimResult:
         cfg = self.config
+        if self._capacity is None:
+            self._resolve_auto_capacity()
+        # each run publishes from scratch: the first due boundary with a
+        # finite best certificate publishes
+        self._published_cert = float("inf")
+        self._next_publish_round = max(int(cfg.publish_every_k), 1)
         state = self._init_state()
         certs0 = state.certs.cpu().numpy()
         history: list[tuple[float, int, float]] = [
             (0.0, i, float(certs0[i])) for i in range(cfg.n_workers)
         ]
         target = None if cfg.target_certificate is None else np.float32(cfg.target_certificate)
+        # the reference's chunk boundaries, where it may publish
+        rpd, max_rounds = int(cfg.rounds_per_dispatch), int(cfg.max_rounds)
         rounds = 0
-        for _ in range(int(cfg.max_rounds)):
+        for _ in range(max_rounds):
             state, info = self._round_step(state)
             rounds += 1
-            if not cfg.record_history and target is None:
-                continue
-            certs_r = info.certs.cpu().numpy()
-            if cfg.record_history:
-                changed = info.changed.cpu().numpy()
-                clock_r = info.clock.cpu().numpy()
-                ww = np.nonzero(changed)[0]
-                history.extend(zip(clock_r[ww].tolist(), ww.tolist(), certs_r[ww].tolist()))
-            # f32 target, as in the reference's in-scan freeze comparison
-            if target is not None and np.any((certs_r <= target) & info.alive.cpu().numpy()):
+            stop = False
+            if cfg.record_history or target is not None:
+                certs_r = info.certs.cpu().numpy()
+                if cfg.record_history:
+                    changed = info.changed.cpu().numpy()
+                    clock_r = info.clock.cpu().numpy()
+                    ww = np.nonzero(changed)[0]
+                    history.extend(zip(clock_r[ww].tolist(), ww.tolist(), certs_r[ww].tolist()))
+                # f32 target, as in the reference's in-scan freeze comparison
+                stop = target is not None and bool(np.any((certs_r <= target) & info.alive.cpu().numpy()))
+            if stop or rounds % rpd == 0 or rounds == max_rounds:
+                self._maybe_publish(state, rounds)
+            if stop:
                 break
+        # final flush: an improvement after the last due boundary still
+        # reaches the publisher before run() returns
+        self._maybe_publish(state, rounds, final=True)
 
         certs = state.certs.cpu().numpy()
         models = self.worker.export_models(state.worker)
@@ -772,7 +1130,13 @@ class TMSNEngine:
             discarded=int(state.discarded),
             payload_bytes=self._payload_bytes,
             evicted=int(state.evicted),
+            dropped_injected=int(state.dropped_inj),
+            corrupt_rejected=int(state.corrupt_rej),
         )
+        # a join happened when its spare went live after round 0 and
+        # before the run ended (a join at round 1 is a member from the start)
+        jr = self._join_round_np
+        workers_joined = int(np.sum((jr > 0) & (jr < rounds)))
         final_models = [tree_map(lambda a, i=i: a[i], models) for i in range(cfg.n_workers)]
         return SimResult.from_traffic(
             traffic,
@@ -786,6 +1150,8 @@ class TMSNEngine:
             gossip_mode="dense",
             inflight_occupancy_peak=int(state.occ_peak),
             control_plane=cfg.control_plane,
+            inflight_capacity_selected=self._auto_selected,
+            workers_joined=workers_joined,
         )
 
 
@@ -809,5 +1175,6 @@ def make_engine(
     worker: BatchedTMSNWorker, config: EngineConfig, device: str | torch.device = "cuda"
 ) -> TMSNEngine:
     """Build the engine for ``config``: the single-device
-    :class:`TMSNEngine` (a multi-device mesh is not ported yet)."""
+    :class:`TMSNEngine` (a multi-device mesh raises: ROADMAP.md queue 1
+    item 10)."""
     return TMSNEngine(worker, config, device)

@@ -355,3 +355,138 @@ def test_cuda_weight_update(cuda_device, n, d, num_bins):
     # c as a Python float takes the same path
     m_f, _ = tops.weight_update(*args, a, float(c), num_bins=num_bins)
     torch.testing.assert_close(m_f, plain[0], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the inputs fault injection gives K2 and K3, and chaos runs on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,cap,m", [(10, 64, 1), (10, 64, 10), (33, 16, 8), (5, 3, 9)])
+def test_cuda_queue_ingest_duplicate_pairs(cuda_device, w, cap, m):
+    """A candidate block that is all duplicate pairs, as a FaultPlan's
+    duplicates make it: column j + m an identical copy of column j (or
+    padding), so equal entries tie in K3's order up to their column."""
+    q = list(_ingest_inputs(w * cap, w, cap, m))
+    rng = np.random.default_rng(m)
+    dup = rng.random((w, m)) < 0.7
+    q[4] = np.concatenate([q[4], np.where(dup, q[4], np.inf).astype(np.float32)], axis=1)
+    q[5] = np.concatenate([q[5], np.where(dup, q[5], -1).astype(np.int32)], axis=1)
+    q[6] = np.concatenate([q[6], q[6]], axis=1)
+    q[7] = np.concatenate([q[7], q[7]], axis=1)
+    _assert_ingest(_cuda(q, cuda_device))
+    edge = list(_ingest_edge_inputs(w + cap, w, cap, m))
+    _assert_ingest(_cuda(edge[:4] + [np.concatenate([a, a], axis=1) for a in edge[4:]], cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,cap", [(10, 64), (37, 64), (9, 3), (3, 3500)])
+def test_cuda_round_step_identical_entries_and_late_dues(cuda_device, w, cap):
+    """Rows holding two identical due entries (a duplicate) and dues
+    beyond r (a reordered delivery): one argmin, both copies cleared,
+    the late entries left."""
+    q_cert, q_due, q_src, q_slot, *rest = _round_inputs(w + cap, w, cap)
+    r = 2
+    rng = np.random.default_rng(cap)
+    q_due = np.where(rng.random((w, cap)) < 0.5, r, r + rng.integers(1, 3, (w, cap))).astype(np.int32)
+    half = cap // 2
+    if half:
+        for a in (q_cert, q_due, q_src, q_slot):
+            a[:, half : 2 * half] = a[:, :half]
+    args = _cuda((q_cert, q_due, q_src, q_slot, *rest), cuda_device)
+    _assert_round(args, rounds=(r, r + 1))
+    cleared = tops.round_deliver(*args, r, eps=0.01)[0]
+    if half:
+        assert torch.equal(_bits(cleared[:, :half]), _bits(cleared[:, half : 2 * half]))
+
+
+class _ToyWorker:
+    """The toy worker of tests/test_torch_engine.py on any device: worker
+    i fires every ``period[i]``-th segment, its certificate then drops to
+    ``-dec[i] * fires``."""
+
+    def __init__(self, period, dec, device):
+        self._period = torch.tensor(period, dtype=torch.int32, device=device)
+        self._dec = torch.tensor(dec, dtype=torch.float32, device=device)
+
+    def init_batch(self, n_workers, seed):
+        dev = self._period.device
+        z = torch.zeros((n_workers,), dtype=torch.int32, device=dev)
+        return {"segs": z, "fires": z.clone(), "cert": torch.zeros((n_workers,), device=dev),
+                "from": torch.full((n_workers,), -1, dtype=torch.int32, device=dev),
+                "owner": torch.arange(n_workers, dtype=torch.int32, device=dev),
+                "period": self._period.clone(), "dec": self._dec.clone()}
+
+    def scan_round(self, state, mask):
+        segs = state["segs"] + mask.to(torch.int32)
+        fired = mask & (segs % state["period"] == 0)
+        fires = state["fires"] + fired.to(torch.int32)
+        cert = torch.where(fired, torch.minimum(state["cert"], -state["dec"] * fires), state["cert"])
+        return dict(state, segs=segs, fires=fires, cert=cert), mask.to(torch.float32), fired
+
+    def certificates(self, state):
+        return state["cert"]
+
+    def export_models(self, state):
+        return {"owner": state["owner"], "cert": state["cert"], "adopted_from": state["from"]}
+
+    def adopt_batch(self, state, models, certs, take):
+        new = dict(state, cert=torch.where(take, certs, state["cert"]))
+        new["from"] = torch.where(take, models["owner"], state["from"])
+        return new, torch.zeros_like(state["cert"])
+
+    def payload_bytes(self):
+        return 8
+
+
+def _toy_run(device, **kw):
+    from repro_torch.core.engine import EngineConfig, TMSNEngine
+
+    w = 8
+    cfg = dict(n_workers=w, max_rounds=24, delay_rounds=1, seed=0, fault_spec="", rounds_per_dispatch=8,
+               gossip_mode="dense", publish_every_k=0, spare_slots=0, inflight_capacity=16,
+               control_plane="sparse", gossip_top_k=w, round_step_impl="pallas")
+    cfg.update(kw)
+    worker = _ToyWorker([1, 2, 3, 1, 2, 3, 1, 2], [0.5, 0.9, 1.3, 0.7, 1.1, 0.6, 0.8, 1.0], device)
+    return TMSNEngine(worker, EngineConfig(**cfg), device=device).run()
+
+
+def _same_run(a, b):
+    assert a.final_certificates == b.final_certificates and a.history == b.history
+    for f in ("rounds", "messages_sent", "messages_accepted", "messages_discarded", "messages_evicted",
+              "messages_dropped_injected", "messages_corrupt_rejected", "workers_joined",
+              "inflight_occupancy_peak"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["sparse", "dense"])
+def test_cuda_composed_chaos_kernels_equal_plain(cuda_device, plane):
+    """Drop, dup, corrupt and reorder with churn at toy scale: K2 and K3
+    on the card equal their plain versions on the card bit for bit, and
+    the CPU run."""
+    from repro_torch.core.engine import FaultPlan, MembershipPlan
+
+    kw = dict(control_plane=plane, spare_slots=2,
+              membership=MembershipPlan(joins=((6, 6), (10, 7)), leaves=((12, 0),)),
+              fault_plan=FaultPlan(drop_prob=0.1, duplicate_prob=0.3, corrupt_prob=0.2, reorder_max=2, seed=13))
+    tops.reset_launches()
+    kern = _toy_run(cuda_device, **kw)
+    assert tops.LAUNCHES["round_step"] == 24
+    assert tops.LAUNCHES["queue_ingest"] == (24 if plane == "sparse" else 0)
+    plain = _toy_run(cuda_device, round_step_impl="ref", **kw)
+    _same_run(kern, plain)
+    _same_run(kern, _toy_run("cpu", **kw))
+    assert kern.messages_dropped_injected > 0 and kern.messages_corrupt_rejected > 0
+    assert kern.workers_joined == 2
+
+
+@pytest.mark.cuda
+def test_cuda_duplication_equals_clean(cuda_device):
+    from repro_torch.core.engine import FaultPlan
+
+    clean = _toy_run(cuda_device)
+    dup = _toy_run(cuda_device, fault_plan=FaultPlan(duplicate_prob=0.5, seed=5))
+    assert dup.final_certificates == clean.final_certificates and dup.history == clean.history
+    assert dup.messages_evicted == 0
