@@ -48,6 +48,17 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              into the record as launches_chaos;
   chaos_small_ref  a composed fault plan with a join and a publisher at the
              small_ref size, on the card (kernels) against the CPU (plain);
+  sharded    the sharded engine (core/engine_sharded.py), ranks started by
+             launch/mesh.py::spawn_world: sharded_main, the main
+             configuration on 2 gloo ranks sharing the card (W_local=5),
+             dense and gated gossip, each equal to main in certificates,
+             history, accepted and evicted; sharded_nccl1, ShardedTMSNEngine
+             on one NCCL rank, equal to main in every counter; sharded_w4096,
+             a toy at W=4096 on 4 gloo ranks (K2 and K3 over 1024 rows a
+             rank), equal to the single-device run on the card. Per rank:
+             wall and collective host ms per round, K1-K3 launches, bytes per
+             round against the reference's formula; launches_sharded in the
+             kernels line sums every rank;
   k4_model   K4 over the training split on the best model of main, the
              whole rule and its second half: the margins must match
              predict_margin and margin_delta_oracle;
@@ -100,6 +111,126 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def engine_config(w: int, rounds: int, sparse: bool):
+    """The main path's engine configuration: every knob pinned."""
+    from repro_torch.core.engine import EngineConfig
+
+    return EngineConfig(
+        n_workers=w, max_rounds=rounds, target_certificate=None, seed=SEED, delay_rounds=1,
+        inflight_capacity=64 if sparse else 0, control_plane="sparse" if sparse else "dense",
+        round_step_impl="pallas", fault_spec="", rounds_per_dispatch=1, gossip_mode="dense",
+        spare_slots=0, publish_every_k=0,
+    )
+
+
+def run_rank(eng, mesh) -> dict:
+    """One timed engine run on one rank of a mesh, with this rank's kernel
+    launches and the host time its collectives took (a sync before and
+    after, so the wall holds the device work)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize(mesh.device)
+    ops.reset_launches()
+    mesh.collective_seconds, mesh.collectives = 0.0, 0
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - t0
+    return dict(
+        engine=type(eng).__name__, rank=mesh.rank, backend=mesh.backend, host_staged=mesh.host_staged,
+        final_certificates=res.final_certificates, history=res.history, rounds=res.rounds,
+        messages_sent=res.messages_sent, messages_accepted=res.messages_accepted,
+        messages_discarded=res.messages_discarded, messages_evicted=res.messages_evicted,
+        inflight_occupancy_peak=res.inflight_occupancy_peak, gossip_bytes=res.gossip_bytes_per_round,
+        control_bytes=res.control_bytes_per_round, gossip_mode=res.gossip_mode,
+        payload_bytes=eng._payload_bytes, wall_s=wall, collective_s=mesh.collective_seconds,
+        collectives=mesh.collectives, launches=dict(ops.LAUNCHES),
+    )
+
+
+def sharded_sparrow_rank(mesh, rounds: int, modes: tuple, direct: bool) -> dict:
+    """One rank of the ``sharded`` phase: the main configuration (data,
+    worker and engine config as ``main`` builds them) through the sharded
+    engine, once per gossip mode. ``direct`` builds ``ShardedTMSNEngine``
+    itself (``make_engine`` sends a one-rank mesh to ``TMSNEngine``)."""
+    from repro_torch.boosting.batched_sparrow import BatchedSparrowWorker
+    from repro_torch.configs.sparrow import DATA, sparrow_config
+    from repro_torch.core.engine import make_engine
+    from repro_torch.core.engine_sharded import ShardedTMSNEngine
+    from repro_torch.data.splice import make_splice_like, train_test_split
+
+    xb, y, _ = make_splice_like(DATA, device=mesh.device)
+    xtr, ytr, _, _ = train_test_split(xb, y)
+    base = sparrow_config()
+    cfg = dataclasses.replace(base, scanner=base.scanner._replace(use_kernel=True))
+    worker = BatchedSparrowWorker(xtr, ytr, cfg, device=mesh.device)
+    out = {}
+    for mode in modes:
+        ecfg = dataclasses.replace(engine_config(cfg.n_workers, rounds, True), gossip_mode=mode, mesh=mesh)
+        eng = ShardedTMSNEngine(worker, ecfg) if direct else make_engine(worker, ecfg)
+        out[mode] = run_rank(eng, mesh)
+    return out
+
+
+class ShardToy:
+    """A shardable toy worker on any device (every per-worker constant in
+    the state): worker i fires every ``1 + i % 3``-th segment and its
+    certificate drops to ``-dec[i] * fires``."""
+
+    def __init__(self, w: int, device):
+        import torch
+
+        i = torch.arange(w, device=device)
+        self._period = (1 + i % 3).to(torch.int32)
+        self._dec = (1e-3 * (1 + (i * 7919) % 1000)).to(torch.float32)
+
+    def init_batch(self, n_workers, seed):
+        import torch
+
+        dev = self._period.device
+        z = torch.zeros((n_workers,), dtype=torch.int32, device=dev)
+        return {"segs": z, "fires": z.clone(), "cert": torch.zeros((n_workers,), device=dev),
+                "from": torch.full((n_workers,), -1, dtype=torch.int32, device=dev),
+                "owner": torch.arange(n_workers, dtype=torch.int32, device=dev),
+                "period": self._period.clone(), "dec": self._dec.clone()}
+
+    def scan_round(self, state, mask):
+        import torch
+
+        segs = state["segs"] + mask.to(torch.int32)
+        fired = mask & (segs % state["period"] == 0)
+        fires = state["fires"] + fired.to(torch.int32)
+        cert = torch.where(fired, torch.minimum(state["cert"], -state["dec"] * fires), state["cert"])
+        return dict(state, segs=segs, fires=fires, cert=cert), mask.to(torch.float32), fired
+
+    def certificates(self, state):
+        return state["cert"]
+
+    def export_models(self, state):
+        return {"owner": state["owner"], "cert": state["cert"], "adopted_from": state["from"]}
+
+    def adopt_batch(self, state, models, certs, take):
+        import torch
+
+        new = dict(state, cert=torch.where(take, certs, state["cert"]))
+        new["from"] = torch.where(take, models["owner"], state["from"])
+        return new, torch.zeros_like(state["cert"])
+
+    def payload_bytes(self):
+        return 8
+
+
+def sharded_toy_rank(mesh, w: int, rounds: int) -> dict:
+    """One rank of ``sharded_w4096``: the toy at W workers on sparse
+    queues (C=64) and the sparse control plane."""
+    from repro_torch.core.engine import make_engine
+
+    ecfg = dataclasses.replace(engine_config(w, rounds, True), mesh=mesh)
+    return run_rank(make_engine(ShardToy(w, mesh.device), ecfg), mesh)
 
 
 def main() -> int:
@@ -202,7 +333,8 @@ def main() -> int:
 
     # K1 edge_scan: the engine (W=10), large W, the event simulator's scan
     # segments (W=1) and exact greedy over the training split (W=1, n=180 000)
-    for nw, n, d, nb in [(10, 2048, 64, 8), (256, 2048, 64, 8), (1, 2048, 64, 8), (1, 180_000, 64, 8)]:
+    for nw, n, d, nb in [(10, 2048, 64, 8), (5, 2048, 64, 8), (256, 2048, 64, 8), (1, 2048, 64, 8),
+                         (1, 180_000, 64, 8)]:
         xb = torch.randint(0, nb, (nw, n, d), generator=g, device=dev, dtype=torch.int32)
         w = torch.rand((nw, n), generator=g, device=dev) + 0.05
         y = torch.where(torch.rand((nw, n), generator=g, device=dev) < 0.5, 1.0, -1.0)
@@ -272,9 +404,10 @@ def main() -> int:
         return all(torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))
                    for a, b, c in zip(got, again, plain))
 
-    # K2 round_step: the engine (W=10) and the large-W queues (W=4096, 10240)
+    # K2 round_step: the engine (W=10), one rank of the sharded engine (W=5,
+    # and W=1024 of the sharded toy) and the large-W queues (W=4096, 10240)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for nw in (10, 4096, 10240):
+    for nw in (10, 5, 1024, 4096, 10240):
         cap = 64
         args = queue_leaves(nw, cap) + (
             -torch.rand((nw,), generator=g, device=dev), torch.rand((nw,), generator=g, device=dev) < 0.8,
@@ -354,11 +487,12 @@ def main() -> int:
         k2_cases += 2
     log(f"phase kernels K2 round_step edge_cases={k2_cases} bitwise_equal=True repeat=True")
 
-    # K3 queue_ingest
-    for nw in (10, 4096):
+    # K3 queue_ingest: the engine (W=10), one rank of the sharded engine
+    # (W=5 with a candidate from each of 2 ranks; W=1024 from 4) and W=4096
+    for nw, cands in ((10, (1, 8)), (5, (2,)), (1024, (4,)), (4096, (1, 8))):
         cap = 64
         qc, qd, qs, ql = queue_leaves(nw, cap)
-        for m in (1, 8):
+        for m in cands:
             cfill = torch.rand((nw, m), generator=g, device=dev) < 0.6
             cc = torch.where(cfill, -torch.rand((nw, m), generator=g, device=dev) - 0.01, float("inf"))
             cd = torch.randint(0, 6, (nw, m), generator=g, device=dev, dtype=torch.int32)
@@ -488,14 +622,6 @@ def main() -> int:
     from repro_torch.configs.sparrow import DATA, sparrow_config
     from repro_torch.core.engine import EngineConfig, TMSNEngine
     from repro_torch.data.splice import SpliceConfig, make_splice_like, train_test_split
-
-    def engine_config(w: int, rounds: int, sparse: bool) -> EngineConfig:
-        return EngineConfig(
-            n_workers=w, max_rounds=rounds, target_certificate=None, seed=SEED, delay_rounds=1,
-            inflight_capacity=64 if sparse else 0, control_plane="sparse" if sparse else "dense",
-            round_step_impl="pallas", fault_spec="", rounds_per_dispatch=1, gossip_mode="dense",
-            spare_slots=0, publish_every_k=0,
-        )
 
     def np_uniforms(stream: int, draw: int) -> float:
         # device-independent offsets, so both devices resample alike
@@ -781,6 +907,104 @@ def main() -> int:
     log(f"phase chaos_small_ref ok rounds={b.rounds} history={len(b.history)} max_cert_err={cert_err:.3g} "
         f"dropped={b.messages_dropped_injected} rejected={b.messages_corrupt_rejected} joined={b.workers_joined} "
         f"publishes={len(blog)} published_rounds={[e[0] for e in blog]}")
+
+    # --------------------------------------------------------------- sharded
+    # the sharded engine (core/engine_sharded.py): the main configuration on
+    # two gloo ranks sharing the card (collectives staged through host
+    # memory), once with dense and once with gated gossip; on a one-rank
+    # NCCL world; and a toy at W=4096 on four ranks (K2, K3 at 1024 rows)
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_world
+
+    def world_dir(tag):
+        (ROOT / "build").mkdir(exist_ok=True)
+        return tempfile.mkdtemp(prefix=f"world_{tag}_", dir=ROOT / "build")
+
+    def held(tag, got, want, fields):
+        for f in fields:
+            if got[f] != getattr(want, f):
+                raise AssertionError(f"sharded {tag}: {f} differs from the single-device run")
+
+    adopt_fields = ("final_certificates", "history", "rounds", "messages_accepted", "messages_evicted")
+    rank_fields = adopt_fields + ("messages_sent", "messages_discarded", "inflight_occupancy_peak",
+                                  "gossip_bytes", "control_bytes", "gossip_mode")
+    sharded_launches = dict.fromkeys(ENGINE_KERNELS, 0)
+
+    def rank_line(tag, out, kernels, formula):
+        for k in kernels:
+            if out["launches"][k] < out["rounds"]:
+                raise AssertionError(f"sharded {tag} rank {out['rank']}: {k} launched {out['launches'][k]} "
+                                     f"times in {out['rounds']} rounds")
+        for k in ENGINE_KERNELS:
+            sharded_launches[k] += out["launches"][k]
+        if (out["gossip_bytes"], out["control_bytes"]) != formula:
+            raise AssertionError(f"sharded {tag}: bytes per round {out['gossip_bytes']}, "
+                                 f"{out['control_bytes']}; the reference's formula gives {formula}")
+        log(f"phase sharded {tag} rank={out['rank']} engine={out['engine']} backend={out['backend']} "
+            f"host_staged={out['host_staged']} rounds={out['rounds']} wall_s={out['wall_s']:.3f} "
+            f"wall_ms_per_round={out['wall_s'] / out['rounds'] * 1e3:.4f} "
+            f"collective_ms_per_round={out['collective_s'] / out['rounds'] * 1e3:.4f} "
+            f"collectives={out['collectives']} sent={out['messages_sent']} "
+            f"accepted={out['messages_accepted']} "
+            f"discarded={out['messages_discarded']} evicted={out['messages_evicted']} "
+            f"occupancy_peak={out['inflight_occupancy_peak']} gossip_bytes_per_round={out['gossip_bytes']} "
+            f"control_bytes_per_round={out['control_bytes']} formula={list(formula)} "
+            f"launches={json.dumps(out['launches'])}")
+
+    t_sh = time.perf_counter()
+    n_dev, k_top = 2, 1
+    ranks = spawn_world(sharded_sparrow_rank, ["cuda:0"] * n_dev, world_dir("main"),
+                        args=(ROUNDS, ("dense", "gated"), False))
+    for mode in ("dense", "gated"):
+        p = ranks[0][mode]["payload_bytes"]
+        ctrl = n_dev * k_top * 12
+        formula = (ctrl + (cfg.n_workers * p if mode == "dense" else n_dev * k_top * p), ctrl)
+        for rr in ranks:
+            out = rr[mode]
+            if (out["engine"], out["backend"], out["host_staged"], out["gossip_mode"]) != (
+                    "ShardedTMSNEngine", "gloo", True, mode):
+                raise AssertionError(f"sharded sharded_main: {out['engine']} on {out['backend']}, "
+                                     f"mode {out['gossip_mode']}")
+            held(f"sharded_main {mode}", out, res, adopt_fields)
+            if any(out[f] != ranks[0][mode][f] for f in rank_fields):
+                raise AssertionError(f"sharded sharded_main {mode}: rank {out['rank']} differs from rank 0")
+            rank_line(f"sharded_main mode={mode}", out, ENGINE_KERNELS, formula)
+        log(f"phase sharded sharded_main mode={mode} == main: certificates, history, accepted, evicted; "
+            f"sent {ranks[0][mode]['messages_sent']} (main {res.messages_sent}), discarded "
+            f"{ranks[0][mode]['messages_discarded']} (main {res.messages_discarded}): {n_dev} ranks offer "
+            f"{n_dev * k_top} candidates a round where one device offers {k_top}")
+
+    nccl = spawn_world(sharded_sparrow_rank, ["cuda:0"], world_dir("nccl1"), args=(ROUNDS, ("dense",), True))
+    out = nccl[0]["dense"]
+    if (out["engine"], out["backend"], out["host_staged"]) != ("ShardedTMSNEngine", "nccl", False):
+        raise AssertionError(f"sharded sharded_nccl1: {out['engine']} on {out['backend']}")
+    held("sharded_nccl1", out, res, adopt_fields + ("messages_sent", "messages_discarded",
+                                                    "inflight_occupancy_peak"))
+    p = out["payload_bytes"]
+    rank_line("sharded_nccl1", out, ENGINE_KERNELS, (k_top * 12 + cfg.n_workers * p, k_top * 12))
+
+    wt, rounds_t, n_t = 4096, 100, 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = TMSNEngine(ShardToy(wt, dev), engine_config(wt, rounds_t, True), device="cuda").run()
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    toy = spawn_world(sharded_toy_rank, ["cuda:0"] * n_t, world_dir("w4096"), args=(wt, rounds_t))
+    for out in toy:
+        held("sharded_w4096", out, single, adopt_fields)
+        if any(out[f] != toy[0][f] for f in rank_fields):
+            raise AssertionError(f"sharded sharded_w4096: rank {out['rank']} differs from rank 0")
+        rank_line("sharded_w4096", out, ("round_step", "queue_ingest"), (n_t * 12 + wt * 8, n_t * 12))
+    log(f"phase sharded sharded_w4096 == single device: certificates, history, accepted, evicted "
+        f"(best {min(single.final_certificates):.6f}, {len(single.history)} history entries); single-device "
+        f"wall_ms_per_round={single_wall / rounds_t * 1e3:.4f} sent {toy[0]['messages_sent']} "
+        f"(single {single.messages_sent}) discarded {toy[0]['messages_discarded']} "
+        f"(single {single.messages_discarded})")
+    log(f"phase sharded ok seconds={time.perf_counter() - t_sh:.3f} launches={json.dumps(sharded_launches)}")
+    for k in ENGINE_KERNELS:
+        records[k]["launches_sharded"] = sharded_launches[k]
+        records[k]["launches"] += sharded_launches[k]
 
     # -------------------------------------------------------------- k4_model
     # K4 on the model main trained: from zero margins, margin' is the

@@ -1,6 +1,7 @@
 """TMSN core: certificates, stopping rules, protocol, the event
-simulator and the single-device round engine; counterpart of
-``src/repro/core`` (the sharded engine is not ported yet)."""
+simulator, the single-device round engine and the engine sharded over a
+1-D worker mesh; counterpart of ``src/repro/core`` (the two-tier pod
+mesh is not ported yet)."""
 
 from repro_torch.core.ess import effective_sample_size
 from repro_torch.core.stopping import (
@@ -32,6 +33,7 @@ from repro_torch.core.engine import (
     make_engine,
     quantize_latency,
 )
+from repro_torch.core.engine_sharded import ShardedTMSNEngine, sharded_engine_available
 
 __all__ = [
     "effective_sample_size",
@@ -60,4 +62,6 @@ __all__ = [
     "TMSNEngine",
     "make_engine",
     "quantize_latency",
+    "ShardedTMSNEngine",
+    "sharded_engine_available",
 ]

@@ -37,7 +37,9 @@ reference's faulted run bit for bit; ``spare_slots`` and a
 :class:`MembershipPlan` add joins and leaves; :meth:`TMSNEngine.attach_publisher`
 publishes the best model at the reference's chunk boundaries; and
 ``inflight_capacity="auto"`` sizes the queues from a warm-up probe.
-A multi-device mesh is not ported yet (ROADMAP.md queue 1 item 10).
+:func:`make_engine` sends a multi-rank ``("workers",)`` mesh to the
+sharded engine (:mod:`repro_torch.core.engine_sharded`); a
+``(pod, workers)`` mesh is not ported yet (ROADMAP.md queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -61,9 +63,7 @@ from repro_torch.core.worker import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-
-#: what the NotImplementedError of an unported feature names
-_DEFERRED = "not ported yet: ROADMAP.md queue 1 item 10 (the sharded engine)"
+from repro_torch.launch.mesh import POD_DEFERRED
 
 #: multiplier on the warm-up probe's ``inflight_occupancy_peak`` when
 #: ``inflight_capacity="auto"`` sizes the pending queues
@@ -389,7 +389,8 @@ class EngineConfig:
     publish_eps: float = dataclasses.field(
         default_factory=lambda: _env_float("REPRO_PUBLISH_EPS", 0.0)
     )
-    #: multi-device mesh; the port's engine is single-device for now
+    #: worker mesh (repro_torch.launch.mesh.make_worker_mesh): make_engine
+    #: shards a multi-rank ("workers",) mesh; None = one device
     mesh: Any = None
 
 
@@ -637,6 +638,11 @@ class EngineState(NamedTuple):
     corrupt_rej: torch.Tensor  # () i32 candidates rejected by the soundness check
 
 
+#: EngineState's traffic counters, reduced over ranks at the end of a run
+_COUNTERS = ("sent", "accepted", "discarded", "cost_total", "evicted", "occ_peak", "dropped_inj",
+             "corrupt_rej")
+
+
 class RoundInfo(NamedTuple):
     """Per-round summary fetched to the host for history and the stop."""
 
@@ -644,6 +650,46 @@ class RoundInfo(NamedTuple):
     changed: torch.Tensor  # (W,) bool — cert changed this round (fire or adopt)
     clock: torch.Tensor  # (W,)
     alive: torch.Tensor  # (W,)
+
+
+class _Rows(NamedTuple):
+    """Per-worker constants of the rows an engine advances: all W on one
+    device, one rank's W_local on the sharded engine."""
+
+    ids: torch.Tensor  # (R,) i32 global worker ids
+    speed: torch.Tensor  # (R,)
+    speed_norm: torch.Tensor  # (R,)
+    fail_round: torch.Tensor  # (R,)
+    join_round: torch.Tensor  # (R,) spare-activation round
+    delay_t: torch.Tensor  # (R, W) [dst, src]
+
+
+class _Advanced(NamedTuple):
+    """A round's rows after delivery, adoption and the scan."""
+
+    wstate: Any
+    certs: torch.Tensor
+    alive: torch.Tensor
+    credit: torch.Tensor
+    clock: torch.Tensor
+    inflight: Any
+    take: torch.Tensor
+    improved: torch.Tensor
+    n_taken: torch.Tensor
+    n_arrivals: torch.Tensor
+    cost: torch.Tensor
+
+
+def _snap_ring(ring, models, slot: int, bcast: torch.Tensor):
+    """Write the broadcasters' ``(W, ...)`` models into ring slot
+    ``slot``; the other workers keep their (dead) old entry."""
+
+    def snap(buf: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        out = buf.clone()
+        out[slot] = torch.where(bcast.reshape((-1,) + (1,) * (m.dim() - 1)), m, buf[slot])
+        return out
+
+    return tree_map(snap, ring, models)
 
 
 class TMSNEngine:
@@ -694,8 +740,8 @@ class TMSNEngine:
             raise ValueError(f"publish_every_k must be >= 0, got {config.publish_every_k}")
         if not config.publish_eps >= 0.0:  # also rejects NaN
             raise ValueError(f"publish_eps must be >= 0, got {config.publish_eps}")
-        if config.mesh is not None and getattr(config.mesh, "size", 1) > 1:
-            raise NotImplementedError(f"a multi-device mesh is {_DEFERRED}")
+        if config.mesh is not None and "pod" in tuple(getattr(config.mesh, "axis_names", ())):
+            raise NotImplementedError(POD_DEFERRED)
         #: serving publisher (see attach_publisher); None keeps run() free
         #: of the per-boundary certificate fetch
         self._publisher: Any = None
@@ -805,6 +851,12 @@ class TMSNEngine:
 
         self._has_resample = has_resample_hooks(worker)
         self._payload_bytes = resolve_payload_bytes(worker, w, config.seed)
+        self._all_ids = torch.arange(w, dtype=torch.int32, device=dev)
+        #: the rows this engine advances: every worker
+        self._rows = _Rows(
+            ids=self._all_ids, speed=self._speed, speed_norm=self._speed_norm, fail_round=self._fail_round,
+            join_round=self._join_round, delay_t=self._delay_t,
+        )
 
     def attach_publisher(self, slot: Any) -> None:
         """Register a snapshot publisher: anything with a
@@ -832,17 +884,66 @@ class TMSNEngine:
         k = int(self.config.publish_every_k)
         while self._next_publish_round <= rounds:
             self._next_publish_round += k
-        live = np.where(state.alive.cpu().numpy(), state.certs.cpu().numpy(), np.inf)
+        certs, alive = self._global_certs_alive(state)
+        live = np.where(alive, certs, np.inf)
         best = int(np.argmin(live))
         best_cert = float(live[best])
         if not np.isfinite(best_cert):
             return
         if best_cert >= self._published_cert - float(self.config.publish_eps):
             return
-        models = self.worker.export_models(state.worker)
-        params = tree_map(lambda a: a[best].detach().cpu().numpy().copy(), models)
+        params = tree_map(lambda a: a.detach().cpu().numpy().copy(), self._export_row(state, best))
         self._publisher.publish(params, cert=best_cert, round=rounds)
         self._published_cert = best_cert
+
+    # ----- the hooks a sharded engine overrides: where rows live --------
+    def _local_rows(self, tree: Any) -> Any:
+        """This engine's rows of a ``(W, ...)`` pytree: all of them."""
+        return tree
+
+    def _global_certs_alive(self, state: EngineState) -> tuple[np.ndarray, np.ndarray]:
+        """Every worker's certificate and alive flag, on the host."""
+        return state.certs.cpu().numpy(), state.alive.cpu().numpy()
+
+    def _export_row(self, state: EngineState, gid: int) -> Any:
+        """Worker ``gid``'s exported model (one row of each leaf)."""
+        return tree_map(lambda a: a[gid], self.worker.export_models(state.worker))
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` of any rank; one device is the only rank."""
+        return flag
+
+    def _merge_history(self, parts: list) -> list:
+        """History tuples from ``(round, clock, gid, cert)`` array blocks,
+        in (round, worker) order."""
+        return [h for _, clock, gid, cert in parts
+                for h in zip(clock.tolist(), gid.tolist(), cert.tolist())]
+
+    def _final(self, state: EngineState) -> dict:
+        """What run() reports, for every worker, on the host (models stay
+        tensors): counters as scalars here, per-rank partials on a
+        sharded engine; ``TrafficCounters.from_shards`` reduces both."""
+        return dict(
+            certs=state.certs.cpu().numpy(),
+            clock=state.clock.cpu().numpy(),
+            models=self.worker.export_models(state.worker),
+            **{k: getattr(state, k).cpu().numpy() for k in _COUNTERS},
+        )
+
+    def _gossip_split(self) -> tuple[int, int]:
+        """(ICI, DCN) cross-device bytes per round, the DCN leg amortized
+        over ``cross_pod_every_k``; (0, 0) on one device."""
+        return 0, 0
+
+    def _control_split(self) -> tuple[int, int]:
+        """(ICI, DCN) control-plane share of :meth:`_gossip_split` per
+        round (certificates, flags, ids); (0, 0) on one device."""
+        return 0, 0
+
+    def _gossip_mode(self) -> str:
+        """Mode label for SimResult: one device has no cross-device
+        gossip, so the knob is reported as inert."""
+        return "dense"
 
     def _resolve_auto_capacity(self) -> None:
         """Resolve ``inflight_capacity="auto"``: run a short warm-up
@@ -872,25 +973,31 @@ class TMSNEngine:
     def _init_state(self) -> EngineState:
         cfg = self.config
         w, d, dev = cfg.n_workers, self._depth, self.device
-        wstate = self.worker.init_batch(w, cfg.seed)
-        models = self.worker.export_models(wstate)
+        full = self.worker.init_batch(w, cfg.seed)
+        models = self.worker.export_models(full)
+        # the ring holds every worker's snapshots, on every rank
+        ring = tree_map(lambda a: a.unsqueeze(0).expand((d,) + a.shape).clone(), models)
+        # the worker's global init, cut to this engine's rows: per-row
+        # identities (stream ids, feature masks) stay global
+        wstate = self._local_rows(full)
+        nr = self._rows.ids.shape[0]
         if self._capacity:
-            inflight = _empty_queue(w, self._capacity, dev)
+            inflight = _empty_queue(nr, self._capacity, dev)
         else:
-            inflight = torch.full((w, w, d), float("inf"), dtype=torch.float32, device=dev)
+            inflight = torch.full((nr, w, d), float("inf"), dtype=torch.float32, device=dev)
         zi = torch.zeros((), dtype=torch.int32, device=dev)
         if self._has_joins:
-            alive0 = torch.as_tensor(self._join_round_np <= 0, device=dev)
+            alive0 = torch.as_tensor(self._local_rows(self._join_round_np) <= 0, device=dev)
         else:
-            alive0 = torch.ones((w,), dtype=torch.bool, device=dev)
+            alive0 = torch.ones((nr,), dtype=torch.bool, device=dev)
         return EngineState(
             worker=wstate,
             certs=self.worker.certificates(wstate).to(torch.float32),
             alive=alive0,
-            credit=torch.zeros((w,), dtype=torch.float32, device=dev),
-            clock=torch.zeros((w,), dtype=torch.float32, device=dev),
+            credit=torch.zeros((nr,), dtype=torch.float32, device=dev),
+            clock=torch.zeros((nr,), dtype=torch.float32, device=dev),
             inflight=inflight,
-            ring=tree_map(lambda a: a.unsqueeze(0).expand((d,) + a.shape).clone(), models),
+            ring=ring,
             round=0,
             sent=zi,
             accepted=zi,
@@ -902,7 +1009,7 @@ class TMSNEngine:
             corrupt_rej=zi,
         )
 
-    def _deliver_sparse(self, queue: PendingQueue, certs0, alive, credit, r: int):
+    def _deliver_sparse(self, queue: PendingQueue, certs0, alive, credit, speed_norm, r: int):
         """Fused sparse delivery through kernel K2 (or its plain version
         under ``round_step_impl="ref"``): argmin over this round's due
         entries, eps-gated accept, arrival clearing, laggard credit.
@@ -912,7 +1019,7 @@ class TMSNEngine:
         deliver = kref.round_step_ref if self.config.round_step_impl == "ref" else kops.round_deliver
         q_cert, best_cert, best_src, best_slot, take, n_arr, credit2, active = deliver(
             queue.cert, queue.due, queue.src, queue.slot, certs0, alive, credit,
-            self._speed_norm, r, eps=float(self.config.eps),
+            speed_norm, r, eps=float(self.config.eps),
         )
         return (
             queue._replace(cert=q_cert),
@@ -934,38 +1041,46 @@ class TMSNEngine:
         return rows, torch.isfinite(score[rows])
 
     def _round_step(self, state: EngineState) -> tuple[EngineState, RoundInfo]:
-        cfg = self.config
-        w, depth = cfg.n_workers, self._depth
+        adv = self._advance(state)
+        inflight, ring, pushed = self._gossip(state, adv)
+        return self._next_state(state, adv, inflight, ring, pushed)
+
+    def _advance(self, state: EngineState) -> _Advanced:
+        """Steps 1-3 of a round on this engine's rows: deliver, adopt,
+        credit, resample, scan. Shared by the sharded engine, whose rows
+        are one rank's."""
+        cfg, rows = self.config, self._rows
+        w, depth, dev = cfg.n_workers, self._depth, self.device
         r = state.round
-        dst_idx = torch.arange(w, device=self.device)
         if self._has_joins:
             # joins are sticky and compose with fail-stop; a joiner's
             # credit restarts at 0 on its join round (it accrued while
             # masked); its worker rows were never touched while masked
-            alive = (state.alive | (r >= self._join_round)) & (r < self._fail_round)
-            credit_in = torch.where(r == self._join_round, 0.0, state.credit)
+            alive = (state.alive | (r >= rows.join_round)) & (r < rows.fail_round)
+            credit_in = torch.where(r == rows.join_round, 0.0, state.credit)
         else:
-            alive = state.alive & (r < self._fail_round)
+            alive = state.alive & (r < rows.fail_round)
             credit_in = state.credit
         certs0 = state.certs
 
         # --- 1.+2.(+3. credit) deliver arrivals due this round ------------
         if self._capacity:
             (inflight, best_cert, best_src, sent_slot, take, n_arrivals, credit,
-             active) = self._deliver_sparse(state.inflight, certs0, alive, credit_in, r)
+             active) = self._deliver_sparse(state.inflight, certs0, alive, credit_in, rows.speed_norm, r)
         else:
+            nr = rows.ids.shape[0]
+            row_idx = torch.arange(nr, device=dev)
             arr = state.inflight[:, :, 0]  # (dst, src) certs
             arr_live = torch.where(alive.unsqueeze(1), arr, _inf(arr))
-            best_src = torch.argmin(arr_live, dim=1)  # (W,)
-            best_cert = arr_live[dst_idx, best_src]
+            best_src = torch.argmin(arr_live, dim=1)  # first minimum: lowest src on ties
+            best_cert = arr_live[row_idx, best_src]
             take = accepts(certs0, best_cert, cfg.eps) & torch.isfinite(best_cert)
             n_arrivals = torch.isfinite(arr).sum(dtype=torch.int32)
-            sent_slot = (r - self._delay[best_src, dst_idx]) % depth
+            sent_slot = (r - rows.delay_t[row_idx, best_src]) % depth
             inflight = torch.cat(
-                [state.inflight[:, :, 1:], torch.full((w, w, 1), float("inf"), device=self.device)],
-                dim=2,
+                [state.inflight[:, :, 1:], torch.full((nr, w, 1), float("inf"), device=dev)], dim=2
             )
-            credit = credit_in + self._speed_norm
+            credit = credit_in + rows.speed_norm
             active = alive & (credit >= 1.0 - 1e-6)
             credit = torch.where(active, credit - 1.0, credit)
         n_taken = take.sum(dtype=torch.int32)
@@ -973,7 +1088,9 @@ class TMSNEngine:
         slot_l, src_l = sent_slot.long(), best_src.long()
         in_models = tree_map(lambda a: a[slot_l, src_l], state.ring)
         wstate = state.worker
-        zeros_w = torch.zeros((w,), dtype=torch.float32, device=self.device)
+        zeros_w = torch.zeros(certs0.shape, dtype=torch.float32, device=dev)
+        # rows with no taker skip the adoption math (on a sharded engine
+        # this is rank-local and issues no collective)
         if bool(take.any()):
             wstate, adopt_cost = self.worker.adopt_batch(wstate, in_models, best_cert, take)
         else:
@@ -992,95 +1109,103 @@ class TMSNEngine:
         certs = self.worker.certificates(wstate)
 
         cost = adopt_cost + resample_cost + scan_cost
-        clock = state.clock + cost / torch.clamp(self._speed, min=1e-12)
+        return _Advanced(
+            wstate=wstate, certs=certs, alive=alive, credit=credit,
+            clock=state.clock + cost / torch.clamp(rows.speed, min=1e-12), inflight=inflight, take=take,
+            improved=fired & improves(certs_pre, certs, 0.0) & scan_mask, n_taken=n_taken,
+            n_arrivals=n_arrivals, cost=cost,
+        )
 
-        # --- 4. broadcast strict improvements -----------------------------
-        improved = fired & improves(certs_pre, certs, 0.0) & scan_mask
-        n_evicted = torch.zeros((), dtype=torch.int32, device=self.device)
-        occ_pre_max = n_evicted
-        n_dropped = n_rejected = 0
-        gids = dst_idx.to(torch.int32)
-        faults = dict(dst_cert=certs, fault=self._fault, pod_of=self._pod_of)
+    def _gossip(self, state: EngineState, adv: _Advanced):
+        """Steps 4-5 on one device: offer the strict improvements and
+        snapshot the broadcasters' models into the ring. Returns
+        ``(inflight, ring, counters)``, counters as :meth:`_push_broadcast`'s."""
+        cfg, w, r = self.config, self.config.n_workers, state.round
+        certs = adv.certs
         if self._control_sparse:
             # only the top-k improvers are offered; under uniform delay
             # the runner-ups could never have been accepted
             kc = min(int(cfg.gossip_top_k), w)
-            rows, validk = self._top_k_candidates(improved, certs, kc)
+            rows, validk = self._top_k_candidates(adv.improved, certs, kc)
             cand_ids = torch.where(validk, rows.to(torch.int32), _i32(w, certs))
             cand_certs = torch.where(validk, certs[rows], _inf(certs))
-            if self._capacity:
-                (inflight, n_pushed, n_evicted, occ_pre_max, n_dropped,
-                 n_rejected) = _queue_push_candidates(
-                    inflight, cand_certs, cand_ids, alive, gids, self._delay_t, r, depth,
-                    cfg.round_step_impl, **faults,
-                )
-            else:
-                inflight, n_pushed, n_dropped, n_rejected = _dense_push_candidates(
-                    inflight, cand_certs, cand_ids, alive, gids, self._delay_t, r, **faults
-                )
-        elif self._capacity:
-            (inflight, n_pushed, n_evicted, occ_pre_max, n_dropped,
-             n_rejected) = _queue_push(
-                inflight, torch.where(improved, certs, _inf(certs)), alive, gids,
-                self._delay_t, r, depth, **faults,
-            )
-        elif self._fault is not None:
-            # faulted dense push: the push mask as a per-edge (dst, src)
-            # certificate matrix, so single edges can be dropped, corrupted
-            # or rejected; n_pushed counts the logical sends
-            push2 = improved.view(1, w) & alive.view(w, 1) & (dst_idx.view(w, 1) != dst_idx.view(1, w))
-            cert_mat = torch.where(push2, certs.view(1, w), _inf(certs))
-            src_mat = gids.view(1, w).expand(w, w)
-            cert_mat, _, _, n_dropped, n_rejected = _inject_faults(
-                self._fault, self._pod_of, r, gids, src_mat, cert_mat, None, certs, depth
-            )
-            d_idx = torch.arange(depth, device=self.device).view(1, 1, depth)
-            push_mask = torch.isfinite(cert_mat).unsqueeze(2) & (d_idx == (self._delay_t.unsqueeze(2) - 1))
-            inflight = torch.where(push_mask, cert_mat.unsqueeze(2), inflight)
-            n_pushed = push2.sum(dtype=torch.int32)
+            inflight, *pushed = self._push_candidates(adv.inflight, cand_certs, cand_ids, adv, r)
         else:
-            d_idx = torch.arange(depth, device=self.device).view(1, 1, depth)
-            # push_mask[dst, src, d] — delay is indexed [src, dst]
-            push_mask = (
-                improved.view(1, w, 1)
-                & alive.view(w, 1, 1)
-                & (dst_idx.view(w, 1) != dst_idx.view(1, w)).unsqueeze(2)
-                & (d_idx == (self._delay_t.unsqueeze(2) - 1))
+            inflight, *pushed = self._push_broadcast(adv.inflight, certs, adv.improved, adv, r)
+        ring = _snap_ring(state.ring, self.worker.export_models(adv.wstate), r % self._depth, adv.improved)
+        return inflight, ring, pushed
+
+    def _push_candidates(self, inflight, cand_certs, cand_ids, adv: _Advanced, r: int):
+        """Sparse control: push an explicit ``(m,)`` candidate list (ids
+        >= W pad it) into this engine's rows, through K3 on the queues.
+        Returns ``(inflight, n_pushed, n_evicted, occ_pre_max, n_dropped,
+        n_rejected)``."""
+        rows = self._rows
+        faults = dict(dst_cert=adv.certs, fault=self._fault, pod_of=self._pod_of)
+        if self._capacity:
+            return _queue_push_candidates(
+                inflight, cand_certs, cand_ids, adv.alive, rows.ids, rows.delay_t, r, self._depth,
+                self.config.round_step_impl, **faults,
             )
-            inflight = torch.where(push_mask, certs.view(1, w, 1), inflight)
-            n_pushed = push_mask.sum(dtype=torch.int32)
+        inflight, n_pushed, n_dropped, n_rejected = _dense_push_candidates(
+            inflight, cand_certs, cand_ids, adv.alive, rows.ids, rows.delay_t, r, **faults
+        )
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        return inflight, n_pushed, zero, zero, n_dropped, n_rejected
 
-        # --- 5. snapshot the broadcasters' models into the ring -----------
-        models = self.worker.export_models(wstate)
-        slot = r % depth
+    def _push_broadcast(self, inflight, certs_all, bcast_all, adv: _Advanced, r: int):
+        """Dense control: offer every broadcaster of the ``(W,)``
+        ``certs_all``/``bcast_all`` to every live row but itself. Returns
+        what :meth:`_push_candidates` returns."""
+        rows, w, depth, dev = self._rows, self.config.n_workers, self._depth, self.device
+        nr = rows.ids.shape[0]
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        if self._capacity:
+            return _queue_push(
+                inflight, torch.where(bcast_all, certs_all, _inf(certs_all)), adv.alive, rows.ids,
+                rows.delay_t, r, depth, dst_cert=adv.certs, fault=self._fault, pod_of=self._pod_of,
+            )
+        not_self = rows.ids.view(nr, 1) != self._all_ids.view(1, w)
+        d_idx = torch.arange(depth, device=dev).view(1, 1, depth)
+        due_d = d_idx == (rows.delay_t.unsqueeze(2) - 1)  # push_mask[dst, src, d]
+        if self._fault is None:
+            push_mask = bcast_all.view(1, w, 1) & adv.alive.view(nr, 1, 1) & not_self.unsqueeze(2) & due_d
+            inflight = torch.where(push_mask, certs_all.view(1, w, 1), inflight)
+            return inflight, push_mask.sum(dtype=torch.int32), zero, zero, 0, 0
+        # faulted dense push: the push mask as a per-edge (dst, src)
+        # certificate matrix, so single edges can be dropped, corrupted or
+        # rejected; n_pushed counts the logical sends
+        push2 = bcast_all.view(1, w) & adv.alive.view(nr, 1) & not_self
+        cert_mat = torch.where(push2, certs_all.view(1, w), _inf(certs_all))
+        src_mat = self._all_ids.view(1, w).expand(nr, w)
+        cert_mat, _, _, n_dropped, n_rejected = _inject_faults(
+            self._fault, self._pod_of, r, rows.ids, src_mat, cert_mat, None, adv.certs, depth
+        )
+        push_mask = torch.isfinite(cert_mat).unsqueeze(2) & due_d
+        inflight = torch.where(push_mask, cert_mat.unsqueeze(2), inflight)
+        return inflight, push2.sum(dtype=torch.int32), zero, zero, n_dropped, n_rejected
 
-        def snap(buf: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-            out = buf.clone()
-            sel = improved.reshape((-1,) + (1,) * (m.dim() - 1))
-            out[slot] = torch.where(sel, m, buf[slot])
-            return out
-
-        ring = tree_map(snap, state.ring, models)
-
+    def _next_state(self, state: EngineState, adv: _Advanced, inflight, ring, pushed):
+        n_pushed, n_evicted, occ_pre_max, n_dropped, n_rejected = pushed
         new_state = EngineState(
-            worker=wstate,
-            certs=certs,
-            alive=alive,
-            credit=credit,
-            clock=clock,
+            worker=adv.wstate,
+            certs=adv.certs,
+            alive=adv.alive,
+            credit=adv.credit,
+            clock=adv.clock,
             inflight=inflight,
             ring=ring,
-            round=r + 1,
+            round=state.round + 1,
             sent=state.sent + n_pushed,
-            accepted=state.accepted + n_taken,
-            discarded=state.discarded + (n_arrivals - n_taken),
-            cost_total=state.cost_total + cost.sum(),
+            accepted=state.accepted + adv.n_taken,
+            discarded=state.discarded + (adv.n_arrivals - adv.n_taken),
+            cost_total=state.cost_total + adv.cost.sum(),
             evicted=state.evicted + n_evicted,
             occ_peak=torch.maximum(state.occ_peak, occ_pre_max),
             dropped_inj=state.dropped_inj if self._fault is None else state.dropped_inj + n_dropped,
             corrupt_rej=state.corrupt_rej if self._fault is None else state.corrupt_rej + n_rejected,
         )
-        info = RoundInfo(certs=certs, changed=take | improved, clock=clock, alive=alive)
+        info = RoundInfo(certs=adv.certs, changed=adv.take | adv.improved, clock=adv.clock, alive=adv.alive)
         return new_state, info
 
     # ------------------------------------------------------------------
@@ -1093,10 +1218,9 @@ class TMSNEngine:
         self._published_cert = float("inf")
         self._next_publish_round = max(int(cfg.publish_every_k), 1)
         state = self._init_state()
-        certs0 = state.certs.cpu().numpy()
-        history: list[tuple[float, int, float]] = [
-            (0.0, i, float(certs0[i])) for i in range(cfg.n_workers)
-        ]
+        gids = self._rows.ids.cpu().numpy()
+        # history blocks (round, clock, gid, cert); round 0 is the start
+        parts = [(0, np.zeros(len(gids), np.float32), gids, state.certs.cpu().numpy())]
         target = None if cfg.target_certificate is None else np.float32(cfg.target_certificate)
         # the reference's chunk boundaries, where it may publish
         rpd, max_rounds = int(cfg.rounds_per_dispatch), int(cfg.max_rounds)
@@ -1108,12 +1232,11 @@ class TMSNEngine:
             if cfg.record_history or target is not None:
                 certs_r = info.certs.cpu().numpy()
                 if cfg.record_history:
-                    changed = info.changed.cpu().numpy()
-                    clock_r = info.clock.cpu().numpy()
-                    ww = np.nonzero(changed)[0]
-                    history.extend(zip(clock_r[ww].tolist(), ww.tolist(), certs_r[ww].tolist()))
-                # f32 target, as in the reference's in-scan freeze comparison
-                stop = target is not None and bool(np.any((certs_r <= target) & info.alive.cpu().numpy()))
+                    ww = np.nonzero(info.changed.cpu().numpy())[0]
+                    parts.append((rounds, info.clock.cpu().numpy()[ww], gids[ww], certs_r[ww]))
+                if target is not None:
+                    # f32 target, as in the reference's in-scan freeze comparison
+                    stop = self._any_rank(bool(np.any((certs_r <= target) & info.alive.cpu().numpy())))
             if stop or rounds % rpd == 0 or rounds == max_rounds:
                 self._maybe_publish(state, rounds)
             if stop:
@@ -1122,33 +1245,41 @@ class TMSNEngine:
         # reaches the publisher before run() returns
         self._maybe_publish(state, rounds, final=True)
 
-        certs = state.certs.cpu().numpy()
-        models = self.worker.export_models(state.worker)
+        history = self._merge_history(parts)
+        fin = self._final(state)
+        ictrl, dctrl = self._control_split()
         traffic = TrafficCounters.from_shards(
-            sent=int(state.sent),
-            accepted=int(state.accepted),
-            discarded=int(state.discarded),
+            sent=fin["sent"],
+            accepted=fin["accepted"],
+            discarded=fin["discarded"],
             payload_bytes=self._payload_bytes,
-            evicted=int(state.evicted),
-            dropped_injected=int(state.dropped_inj),
-            corrupt_rejected=int(state.corrupt_rej),
+            evicted=fin["evicted"],
+            control_bytes=(ictrl + dctrl) * rounds,
+            dropped_injected=fin["dropped_inj"],
+            corrupt_rejected=fin["corrupt_rej"],
         )
         # a join happened when its spare went live after round 0 and
         # before the run ended (a join at round 1 is a member from the start)
         jr = self._join_round_np
         workers_joined = int(np.sum((jr > 0) & (jr < rounds)))
+        models = fin["models"]
         final_models = [tree_map(lambda a, i=i: a[i], models) for i in range(cfg.n_workers)]
+        ici_bytes, dcn_bytes = self._gossip_split()
         return SimResult.from_traffic(
             traffic,
             history=history,
-            final_certificates=[float(c) for c in certs],
+            final_certificates=[float(c) for c in fin["certs"]],
             final_models=final_models,
-            sim_time=float(state.clock.max()),
-            cost_units_total=float(state.cost_total),
+            sim_time=float(fin["clock"].max()),
+            cost_units_total=float(np.sum(fin["cost_total"])),
             events_processed=rounds * cfg.n_workers,
             rounds=rounds,
-            gossip_mode="dense",
-            inflight_occupancy_peak=int(state.occ_peak),
+            gossip_bytes_per_round=ici_bytes + dcn_bytes,
+            gossip_bytes_per_round_ici=ici_bytes,
+            gossip_bytes_per_round_dcn=dcn_bytes,
+            gossip_mode=self._gossip_mode(),
+            inflight_occupancy_peak=int(np.max(fin["occ_peak"])),
+            control_bytes_per_round=ictrl + dctrl,
             control_plane=cfg.control_plane,
             inflight_capacity_selected=self._auto_selected,
             workers_joined=workers_joined,
@@ -1172,9 +1303,21 @@ def quantize_latency(
 
 
 def make_engine(
-    worker: BatchedTMSNWorker, config: EngineConfig, device: str | torch.device = "cuda"
+    worker: BatchedTMSNWorker, config: EngineConfig, device: str | torch.device | None = None
 ) -> TMSNEngine:
-    """Build the engine for ``config``: the single-device
-    :class:`TMSNEngine` (a multi-device mesh raises: ROADMAP.md queue 1
-    item 10)."""
-    return TMSNEngine(worker, config, device)
+    """Build the engine for ``config.mesh``, as the reference does:
+    ``None`` or a mesh of one rank gives the single-device
+    :class:`TMSNEngine`, a multi-rank mesh with a ``workers`` axis the
+    :class:`~repro_torch.core.engine_sharded.ShardedTMSNEngine` (a
+    ``(pod, workers)`` mesh raises: ROADMAP.md queue 1 item 10b).
+    ``device`` defaults to the mesh's device, else ``"cuda"``."""
+    mesh = config.mesh
+    if mesh is None or mesh.size == 1:
+        if device is None:
+            device = getattr(mesh, "device", "cuda")
+        return TMSNEngine(worker, config, device)
+    if "workers" not in mesh.axis_names:
+        raise ValueError(f"engine mesh needs a 'workers' axis, got {mesh.axis_names}")
+    from repro_torch.core.engine_sharded import ShardedTMSNEngine
+
+    return ShardedTMSNEngine(worker, config, device)

@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (K1 ``edge_scan``, K2
-``round_deliver``, K3 ``queue_ingest``, K4 ``weight_update``).
+``round_deliver``, K3 ``queue_ingest``, K4 ``weight_update``), and
+``edge_scan_sharded``, K1 over one rank's workers of a mesh.
 
 Counterpart of ``src/repro/kernels/ops.py``. Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``
@@ -193,6 +194,33 @@ def edge_scan(
     return hist, scal[0], scal[1], scal[2]
 
 
+def edge_scan_sharded(
+    xb: torch.Tensor,
+    wy: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    mesh,
+    num_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`edge_scan` sharded over a ``workers`` mesh of ranks
+    (:func:`repro_torch.launch.mesh.make_worker_mesh`); counterpart of
+    the reference's ``edge_scan_sharded``. Every rank passes the global
+    ``(W, n, d)`` / ``(W, n)`` inputs, runs ONE K1 launch over its own
+    ``W / n_dev`` workers' rows, and gets the global ``(W, d, B)``
+    histograms and ``(W,)`` sums back, gathered (a copy of bits, rank 0's
+    rows first). A wrapper, not a kernel: its launches are K1's."""
+    from repro_torch.launch.mesh import all_gather_tree
+
+    n_dev = mesh.shape["workers"]
+    if xb.shape[0] % n_dev:
+        raise ValueError(f"worker axis {xb.shape[0]} must divide over {n_dev} devices")
+    wl = xb.shape[0] // n_dev
+    rows = slice(mesh.rank * wl, (mesh.rank + 1) * wl)
+    hist, w_, v, t = edge_scan(xb[rows], wy[rows], w[rows], num_bins=num_bins)
+    g = all_gather_tree(mesh, (hist, w_, v, t))
+    return g[0], g[1], g[2], g[3]
+
+
 def round_deliver(
     q_cert: torch.Tensor,
     q_due: torch.Tensor,
@@ -353,6 +381,7 @@ __all__ = [
     "LAUNCHES",
     "edge_scan",
     "edge_scan_plan",
+    "edge_scan_sharded",
     "queue_ingest",
     "queue_ingest_plan",
     "reset_launches",

@@ -311,18 +311,32 @@ def test_validation_errors_match_reference(name):
 
 
 def test_only_a_mesh_is_deferred():
-    """Every item-9 feature is accepted; an inactive plan is the clean run."""
+    """Every item-9 feature is accepted; an inactive plan is the clean
+    run. Of the meshes only the two-tier (pod, workers) one is still
+    deferred (ROADMAP item 10b); a mesh with no ``workers`` axis raises
+    the reference's ValueError, text for text."""
     for kw in (dict(inflight_capacity="auto"), dict(spare_slots=1), dict(membership=teng.MembershipPlan()),
                dict(fault_spec="drop=5,seed=1"), dict(fault_plan=teng.FaultPlan(drop_prob=0.1)),
                dict(publish_every_k=3)):
         _engine(teng, **kw)
     assert _engine(teng, fault_plan=teng.FaultPlan(seed=4))._fault is None
 
-    class Mesh:
-        size = 2
+    class PodMesh:
+        size, axis_names = 4, ("pod", "workers")
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        _engine(teng, mesh=Mesh())
+    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+        _engine(teng, mesh=PodMesh())
+    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+        teng.make_engine(TorchToyWorker(PERIOD, DEC), _config(teng, mesh=PodMesh()), CPU)
+
+    class DataMesh:
+        size, axis_names = 2, ("data",)
+
+    with pytest.raises(ValueError) as je:
+        jeng.make_engine(JaxToyWorker(PERIOD, DEC), _config(jeng, mesh=DataMesh()))
+    with pytest.raises(ValueError) as te:
+        teng.make_engine(TorchToyWorker(PERIOD, DEC), _config(teng, mesh=DataMesh()), CPU)
+    assert str(te.value) == str(je.value)
 
 
 # ---------------------------------------------------------------------------

@@ -490,3 +490,78 @@ def test_cuda_duplication_equals_clean(cuda_device):
     dup = _toy_run(cuda_device, fault_plan=FaultPlan(duplicate_prob=0.5, seed=5))
     assert dup.final_certificates == clean.final_certificates and dup.history == clean.history
     assert dup.messages_evicted == 0
+
+
+@pytest.mark.cuda
+def test_cuda_eviction_lemma_capacity_one_through_k3(cuda_device):
+    """The eviction lemma of tests/test_properties.py at capacity 1,
+    through K3: the scores offered as one candidate list, every
+    destination keeps the best certificate of the other workers, and the
+    kernel's queue equals the plain version's bit for bit. Bounds
+    float32 can represent."""
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+    from repro_torch.core.engine import _empty_queue, _queue_push_candidates
+
+    @hyp.settings(deadline=None, max_examples=30)
+    @hyp.given(st.lists(st.floats(min_value=-100.0, max_value=float(np.float32(-0.01)), width=32),
+                        min_size=2, max_size=12))
+    def prop(scores):
+        w = len(scores)
+        score = torch.tensor(scores, dtype=torch.float32, device=cuda_device)
+        ids = torch.arange(w, dtype=torch.int32, device=cuda_device)
+        delay = torch.ones((w, w), dtype=torch.int32, device=cuda_device)
+        alive = torch.ones((w,), dtype=torch.bool, device=cuda_device)
+        args = (_empty_queue(w, 1, cuda_device), score, ids, alive, ids, delay, 0, 8)
+        tops.reset_launches()
+        kern = _queue_push_candidates(*args, "pallas")
+        assert tops.LAUNCHES["queue_ingest"] == 1
+        plain = _queue_push_candidates(*args, "ref")
+        for a, b in zip(kern[0], plain[0]):
+            assert torch.equal(_bits(a), _bits(b))
+        assert [int(x) for x in kern[1:3]] == [int(x) for x in plain[1:3]]
+        kept = kern[0].cert[:, 0].cpu().numpy()
+        sc = np.asarray(scores, np.float32)
+        for dst in range(w):
+            assert kept[dst] == min(sc[src] for src in range(w) if src != dst)
+
+    prop()
+
+
+def _sharded_toy_rank(mesh, kw):
+    """One rank of a world sharing the card: the toy run of ``_toy_run``
+    through the sharded engine, with this rank's kernel launches."""
+    from repro_torch.core.engine import EngineConfig, make_engine
+
+    w = 8
+    cfg = dict(n_workers=w, max_rounds=24, delay_rounds=1, seed=0, fault_spec="", rounds_per_dispatch=8,
+               gossip_mode="dense", publish_every_k=0, spare_slots=0, inflight_capacity=16,
+               control_plane="sparse", gossip_top_k=w, round_step_impl="pallas", mesh=mesh)
+    cfg.update(kw)
+    worker = _ToyWorker([1, 2, 3, 1, 2, 3, 1, 2], [0.5, 0.9, 1.3, 0.7, 1.1, 0.6, 0.8, 1.0], mesh.device)
+    tops.reset_launches()
+    res = make_engine(worker, EngineConfig(**cfg)).run()
+    fields = ("final_certificates", "history", "rounds", "messages_sent", "messages_accepted",
+              "messages_discarded", "messages_evicted", "inflight_occupancy_peak")
+    return {f: getattr(res, f) for f in fields} | {"launches": dict(tops.LAUNCHES),
+                                                   "host_staged": mesh.host_staged}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["sparse", "dense"])
+def test_cuda_sharded_engine_two_ranks_share_the_card(cuda_device, tmp_path, plane):
+    """Two gloo ranks on one card (collectives staged through the host),
+    each launching K2 (and K3 under sparse control) over its 4 workers
+    every round: the single-device run on the card, bit for bit (with
+    gossip_top_k = W every improver is offered, so every counter too)."""
+    from repro_torch.launch.mesh import spawn_world
+
+    res = spawn_world(_sharded_toy_rank, ["cuda:0", "cuda:0"], tmp_path, args=(dict(control_plane=plane),))
+    single = _toy_run(cuda_device, control_plane=plane)
+    for r in res:
+        assert r["host_staged"]
+        assert r["launches"]["round_step"] == 24
+        assert r["launches"]["queue_ingest"] == (24 if plane == "sparse" else 0)
+        for f in ("final_certificates", "history", "rounds", "messages_sent", "messages_accepted",
+                  "messages_discarded", "messages_evicted", "inflight_occupancy_peak"):
+            assert r[f] == getattr(single, f), f

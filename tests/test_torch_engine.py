@@ -218,6 +218,55 @@ class TestToyEngineBitExact:
         _assert_bit_exact(jres, tres)
 
 
+def _eviction_lemma_both(scores):
+    """``_queue_push`` at capacity 1 under uniform delay, the port's and
+    the reference's on the same scores: the same queue bit for bit and
+    the same counters, and every destination keeps the best certificate
+    of the other workers (the lemma behind C >= 1 being exact at
+    uniform delay)."""
+    w = len(scores)
+    sc = np.asarray(scores, np.float32)
+    jq, *jc = jeng._queue_push(jeng._empty_queue(w, 1), jnp.asarray(sc), jnp.ones((w,), bool), jnp.arange(w),
+                               jnp.ones((w, w), jnp.int32), jnp.int32(0), 8)
+    tq, *tc = teng._queue_push(teng._empty_queue(w, 1, CPU), torch.from_numpy(sc.copy()),
+                               torch.ones((w,), dtype=torch.bool), torch.arange(w, dtype=torch.int32),
+                               torch.ones((w, w), dtype=torch.int32), 0, 8)
+    for a, b in zip(jq, tq):
+        assert np.array_equal(np.asarray(a).view(np.int32) if np.asarray(a).dtype == np.float32 else np.asarray(a),
+                              b.numpy().view(np.int32) if b.dtype == torch.float32 else b.numpy())
+    assert [int(x) for x in tc] == [int(x) for x in jc]
+    kept = tq.cert[:, 0].numpy()
+    for dst in range(w):
+        assert kept[dst] == min(sc[src] for src in range(w) if src != dst)
+
+
+def test_eviction_lemma_capacity_one_matches_reference():
+    """tests/test_properties.py's eviction property, whose -0.01 bound is
+    not a float32 (hypothesis draws no example there), with the float32
+    bound, on the port against the reference."""
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+
+    @hyp.settings(deadline=None, max_examples=30)
+    @hyp.given(st.lists(st.floats(min_value=-100.0, max_value=float(np.float32(-0.01)), width=32),
+                        min_size=2, max_size=12))
+    def prop(scores):
+        _eviction_lemma_both(scores)
+
+    prop()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_eviction_lemma_capacity_one_seeded(seed):
+    """The same check on seeded draws (ties and the float32 bound
+    included), so it runs where hypothesis is not installed."""
+    rng = np.random.default_rng(seed)
+    w = int(rng.integers(2, 13))
+    pool = np.float32([-100.0, np.float32(-0.01), -1.0, -0.5])
+    sc = np.where(rng.random(w) < 0.3, rng.choice(pool, w), rng.uniform(-100.0, -0.01, w)).astype(np.float32)
+    _eviction_lemma_both(sc.tolist())
+
+
 class TestToyEngineChain:
     """The port's own chain on the toy worker: sparse == dense."""
 
@@ -389,18 +438,30 @@ def test_invalid_configs_raise_like_reference():
 
 def test_publisher_and_mesh_deferred():
     """The publisher is ported (it needs publish_every_k >= 1, as in the
-    reference); a multi-device mesh still raises, naming ROADMAP item 10."""
+    reference). The 1-D sharded engine is ported; a (pod, workers) mesh
+    still raises, naming ROADMAP item 10b, and a mesh with no ``workers``
+    axis raises the reference's ValueError."""
     period, dec = _toy_args(4)
     eng = teng.TMSNEngine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, **PINNED), device=CPU)
     with pytest.raises(ValueError, match="publish_every_k >= 1"):
         eng.attach_publisher(object())
 
-    class Mesh:
-        size = 4
+    class PodMesh:
+        size, axis_names = 4, ("pod", "workers")
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        teng.make_engine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, mesh=Mesh(), **PINNED),
+    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+        teng.make_engine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, mesh=PodMesh(), **PINNED),
                          device=CPU)
+
+    class DataMesh:
+        size, axis_names = 4, ("data",)
+
+    with pytest.raises(ValueError) as je:
+        jeng.make_engine(JaxToyWorker(period, dec), jeng.EngineConfig(n_workers=4, mesh=DataMesh(), **PINNED))
+    with pytest.raises(ValueError) as te:
+        teng.make_engine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, mesh=DataMesh(), **PINNED),
+                         device=CPU)
+    assert str(te.value) == str(je.value) == "engine mesh needs a 'workers' axis, got ('data',)"
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(splice):

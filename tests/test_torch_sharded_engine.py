@@ -1,0 +1,459 @@
+"""The port's sharded engine (``repro_torch.core.engine_sharded``) on
+gloo worlds of 2 and 4 CPU ranks, held against the port's single-device
+``TMSNEngine`` — the pins of tests/test_sharded_engine.py on a torch
+twin of its ``ShardableToyWorker``:
+
+  * dense gossip with the dense control plane gives the single-device
+    run bit for bit: certificates, history, rounds, every counter, the
+    simulated clock and each worker's adoption (single sender with a
+    target and chunked dispatch, fail-stop, laggards, a link-delay
+    matrix, uniform delay, pending queues at C = 16 and C = 1, fault
+    plans, joins and leaves, auto capacity);
+  * gated gossip and the sparse control plane give its certificates,
+    history and adoptions bit for bit under uniform delay (they push
+    different numbers of messages by design); sparse control at
+    ``gossip_top_k >= W_local`` offers every improver and matches every
+    counter;
+  * the byte accounting of the reference's formulas, the publisher's
+    sequence, the factory's dispatch and errors, ``edge_scan_sharded``
+    and the collectives (bits kept, ``-0.0`` included);
+  * batched Sparrow on the small_ref data, with kernels off and through
+    the plain K1: certificates, history and models bit for bit;
+  * every rank returns the same result.
+
+One world per size is started for the module (``spawn``, a file store in
+``tmp_path``), every scenario runs inside it, and the parametrised tests
+assert on the results. Neither the ranks nor this module import JAX;
+tests/test_torch_sharded_reference.py holds the same engine to the
+reference's sharded engine.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.core.engine_sharded import ShardedTMSNEngine  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+
+CPU = "cpu"
+WORLDS = (2, 4)
+#: every env-steerable knob, pinned
+PINNED = dict(
+    fault_spec="", rounds_per_dispatch=1, gossip_mode="dense", cross_pod_every_k=1, cross_pod_top_k=1,
+    spare_slots=0, publish_every_k=0, publish_eps=0.0, control_plane="dense", inflight_capacity=0,
+    round_step_impl="pallas",
+)
+
+
+class ShardableTorchToy:
+    """Torch twin of tests/test_sharded_engine.py's ``ShardableToyWorker``:
+    every per-worker constant (period, decrement, global id) lives in the
+    state, so it shards with the worker axis."""
+
+    def __init__(self, period, dec):
+        self._period = torch.tensor(period, dtype=torch.int32)
+        self._dec = torch.tensor(dec, dtype=torch.float32)
+
+    def init_batch(self, n_workers, seed):
+        z = torch.zeros((n_workers,), dtype=torch.int32)
+        return {"segs": z, "fires": z.clone(), "cert": torch.zeros((n_workers,)),
+                "from": torch.full((n_workers,), -1, dtype=torch.int32),
+                "owner": torch.arange(n_workers, dtype=torch.int32),
+                "period": self._period.clone(), "dec": self._dec.clone()}
+
+    def scan_round(self, state, mask):
+        segs = state["segs"] + mask.to(torch.int32)
+        fired = mask & (segs % state["period"] == 0)
+        fires = state["fires"] + fired.to(torch.int32)
+        own = -state["dec"] * fires
+        cert = torch.where(fired, torch.minimum(state["cert"], own), state["cert"])
+        return dict(state, segs=segs, fires=fires, cert=cert), mask.to(torch.float32), fired
+
+    def needs_resample(self, state):
+        return torch.zeros(state["cert"].shape, dtype=torch.bool)
+
+    def resample_round(self, state, do):
+        return state, torch.zeros(state["cert"].shape)
+
+    def certificates(self, state):
+        return state["cert"]
+
+    def export_models(self, state):
+        return {"owner": state["owner"], "cert": state["cert"], "adopted_from": state["from"]}
+
+    def adopt_batch(self, state, models, certs, take):
+        new = dict(state)
+        new["cert"] = torch.where(take, certs, state["cert"])
+        new["from"] = torch.where(take, models["owner"], state["from"])
+        return new, torch.zeros(state["cert"].shape)
+
+    def payload_bytes(self):
+        return 8
+
+
+def _busy(w):
+    """Every worker fires (period 1 or 2) with distinct decrements:
+    several improvers per shard every round."""
+    return [1, 2] * (w // 2), [0.01 * (i + 1) for i in range(w)]
+
+
+def _lone(w):
+    return [1] + [10**9] * (w - 1), [0.1] * w
+
+
+def _delays(w):
+    return teng.quantize_latency(0.05, 0.02, 0.05, w, seed=1)
+
+
+_PLAN = dict(drop_prob=0.1, duplicate_prob=0.3, corrupt_prob=0.1, reorder_max=1, seed=13)
+
+#: name -> (workload, W, config kwargs, what must match the single device)
+#: "all": certificates, history, rounds, every counter, clock, adoptions;
+#: "adoptions": certificates, history, rounds, accepted, adoptions
+TOY = {
+    "single_sender_target": (_lone, 16, dict(target_certificate=-0.95, max_rounds=500), "all"),
+    "single_sender_target_rpd8": (_lone, 16, dict(target_certificate=-0.95, max_rounds=500,
+                                                  rounds_per_dispatch=8), "all"),
+    "fail_stop": (_lone, 8, dict(fail_round=[5] + [10**6] * 7, max_rounds=30), "all"),
+    "laggards": (lambda w: ([1] * w, [0.1] * w), 8, dict(speed=[1.0] * 6 + [0.25, 0.5], max_rounds=40),
+                 "all"),
+    "delay_matrix": (lambda w: ([1, 2] * (w // 2), [0.05 * (i + 1) for i in range(w)]), 8,
+                     dict(delay_rounds=_delays(8), max_rounds=25), "all"),
+    "delay_matrix_queues": (lambda w: ([1, 2] * (w // 2), [0.05 * (i + 1) for i in range(w)]), 8,
+                            dict(delay_rounds=_delays(8), max_rounds=25, inflight_capacity=16), "all"),
+    "dense_uniform": (_busy, 16, dict(max_rounds=30), "all"),
+    "dense_delay2": (_busy, 8, dict(max_rounds=30, delay_rounds=2), "all"),
+    "gated_uniform": (_busy, 16, dict(max_rounds=30, gossip_mode="gated"), "adoptions"),
+    "gated_failstop_laggards": (_busy, 16, dict(max_rounds=25, gossip_mode="gated",
+                                                speed=[1.0] * 14 + [0.25, 0.5],
+                                                fail_round=[5] + [10**6] * 15), "adoptions"),
+    "gated_top3": (_busy, 16, dict(max_rounds=10, gossip_mode="gated", gossip_top_k=3), "adoptions"),
+    "gated_top_w": (_busy, 16, dict(max_rounds=10, gossip_mode="gated", gossip_top_k=16), "all"),
+    "gated_rpd8": (_busy, 16, dict(max_rounds=24, gossip_mode="gated", rounds_per_dispatch=8), "adoptions"),
+    "queues": (_busy, 16, dict(max_rounds=30, inflight_capacity=16), "all"),
+    "queues_c1": (_busy, 8, dict(max_rounds=30, inflight_capacity=1), "all"),
+    "queues_ref_impl": (_busy, 16, dict(max_rounds=30, inflight_capacity=16, round_step_impl="ref"), "all"),
+    "sparse_control_queues": (_busy, 16, dict(max_rounds=30, inflight_capacity=16, control_plane="sparse"),
+                              "adoptions"),
+    "sparse_control_dense": (_busy, 16, dict(max_rounds=30, control_plane="sparse"), "adoptions"),
+    "sparse_control_gated": (_busy, 16, dict(max_rounds=30, inflight_capacity=8, control_plane="sparse",
+                                             gossip_mode="gated"), "adoptions"),
+    "sparse_control_top_w": (_busy, 16, dict(max_rounds=30, inflight_capacity=16, control_plane="sparse",
+                                             gossip_top_k=16), "all"),
+    "faults_queues": (_busy, 8, dict(max_rounds=24, inflight_capacity=16, fault=_PLAN), "all"),
+    "faults_dense": (_busy, 8, dict(max_rounds=24, fault=dict(drop_prob=0.3, corrupt_prob=0.3, seed=7)),
+                     "all"),
+    "faults_sparse_control": (_busy, 8, dict(max_rounds=24, inflight_capacity=16, control_plane="sparse",
+                                             gossip_top_k=8, fault=_PLAN), "all"),
+    "churn": (_busy, 8, dict(max_rounds=24, inflight_capacity=16, spare_slots=2, speed=[1.0, 0.25] * 4,
+                             membership=dict(joins=((6, 6), (10, 7)), leaves=((12, 1),))), "all"),
+    "auto_capacity": (_busy, 8, dict(max_rounds=24, inflight_capacity="auto"), "all"),
+    "publisher": (_busy, 8, dict(max_rounds=24, publish_every_k=5, rounds_per_dispatch=4), "all"),
+}
+
+
+def _config(w, mesh=None, **kw):
+    kw = dict(kw)
+    if "fault" in kw:
+        kw["fault_plan"] = teng.FaultPlan(**kw.pop("fault"))
+    if "membership" in kw:
+        kw["membership"] = teng.MembershipPlan(**kw.pop("membership"))
+    return teng.EngineConfig(**{**PINNED, "n_workers": w, "mesh": mesh, **kw})
+
+
+class _Log:
+    def __init__(self):
+        self.log = []
+
+    def publish(self, params, cert, round=0):
+        self.log.append((round, cert, {k: np.asarray(v).tolist() for k, v in params.items()}))
+
+
+def _summary(res, publisher=None):
+    out = dict(
+        certs=res.final_certificates, history=res.history, rounds=res.rounds, sim_time=res.sim_time,
+        cost=res.cost_units_total, gossip_bytes=res.gossip_bytes_per_round,
+        control_bytes=res.control_bytes_per_round, mode=res.gossip_mode,
+        **{f: getattr(res, f) for f in COUNTERS},
+    )
+    if isinstance(res.final_models[0], dict):
+        out["adopted_from"] = [int(m["adopted_from"]) for m in res.final_models]
+    else:  # a StumpModel
+        out["models"] = [tuple(np.asarray(a).tolist() for a in m) for m in res.final_models]
+    if publisher is not None:
+        out["published"] = publisher.log
+    return out
+
+
+COUNTERS = ("messages_sent", "messages_accepted", "messages_discarded", "messages_evicted",
+            "inflight_occupancy_peak", "messages_dropped_injected", "messages_corrupt_rejected",
+            "workers_joined", "inflight_capacity_selected", "events_processed", "bytes_broadcast")
+
+
+def _run_toy(name, mesh=None):
+    workload, w, kw, _ = TOY[name]
+    cfg = _config(w, mesh, **kw)
+    worker = ShardableTorchToy(*workload(w))
+    eng = teng.make_engine(worker, cfg, CPU) if mesh is None else teng.make_engine(worker, cfg)
+    pub = None
+    if cfg.publish_every_k:
+        pub = _Log()
+        eng.attach_publisher(pub)
+    return _summary(eng.run(), pub)
+
+
+# ---------------------------------------------------------------------------
+# batched Sparrow on the small_ref data (chip_smoke.py's small_ref phase)
+# ---------------------------------------------------------------------------
+
+SPARROW_W = 8
+SPARROW = {
+    "sparrow_dense": dict(use_kernel=False, max_rounds=30),
+    "sparrow_dense_k1": dict(use_kernel=True, max_rounds=30),
+    "sparrow_gated_queues": dict(use_kernel=True, max_rounds=30, gossip_mode="gated", inflight_capacity=64),
+    "sparrow_sparse_control": dict(use_kernel=True, max_rounds=30, inflight_capacity=64,
+                                   control_plane="sparse"),
+}
+
+
+def _sparrow_worker(use_kernel):
+    from repro_torch.boosting.batched_sparrow import BatchedSparrowWorker
+    from repro_torch.boosting.scanner import ScannerConfig
+    from repro_torch.boosting.sparrow import SparrowConfig
+    from repro_torch.data.splice import SpliceConfig, make_splice_like
+
+    xb, y, _ = make_splice_like(SpliceConfig(n=6000, d=16, num_bins=8, seed=3), device=CPU)
+    cfg = SparrowConfig(
+        sample_size=800, capacity=32, n_workers=SPARROW_W, ess_threshold=0.5,
+        scanner=ScannerConfig(chunk_size=256, num_bins=8, gamma0=0.25, use_kernel=use_kernel),
+    )
+    return BatchedSparrowWorker(xb, y, cfg, device=CPU)
+
+
+def _run_sparrow(name, mesh=None):
+    kw = dict(SPARROW[name])
+    worker = _sparrow_worker(kw.pop("use_kernel"))
+    cfg = _config(SPARROW_W, mesh, **kw)
+    eng = teng.make_engine(worker, cfg, CPU) if mesh is None else teng.make_engine(worker, cfg)
+    return _summary(eng.run())
+
+
+# ---------------------------------------------------------------------------
+# what each rank runs
+# ---------------------------------------------------------------------------
+
+
+def _errors(mesh):
+    """The factory's and the engine's refusals on a real mesh, as text."""
+    out = {}
+    toy = ShardableTorchToy(*_busy(8))
+
+    class NoWorkers:
+        size, axis_names, device = mesh.size, ("data",), mesh.device
+
+    class PodMesh:
+        size, axis_names, device = mesh.size, ("pod", "workers"), mesh.device
+
+    cases = {
+        "no_workers_axis": lambda: teng.make_engine(toy, _config(8, NoWorkers())),
+        "pod_mesh": lambda: teng.make_engine(toy, _config(8, PodMesh())),
+        "pods_arg": lambda: tmesh.make_worker_mesh(mesh.size, pods=2, device=CPU),
+        # the card by default; without one it raises before any collective
+        "default_device": lambda: tmesh.make_worker_mesh(mesh.size),
+        "world_size": lambda: tmesh.make_worker_mesh(mesh.size - 1, device=CPU),
+        "indivisible": lambda: teng.make_engine(
+            ShardableTorchToy(*_busy(mesh.size + 1)), _config(mesh.size + 1, mesh)),
+        "bad_mode": lambda: teng.make_engine(toy, _config(8, mesh, gossip_mode="sparse")),
+        "bad_device": lambda: ShardedTMSNEngine(toy, _config(8, mesh), device="meta"),
+    }
+    for k, fn in cases.items():
+        try:
+            fn()
+            out[k] = None
+        except Exception as e:  # the test asserts the type and the text
+            out[k] = (type(e).__name__, str(e))
+    out["engine_type"] = type(teng.make_engine(toy, _config(8, mesh))).__name__
+    return out
+
+
+def _collectives(mesh):
+    r = mesh.rank
+    tree = {
+        "f": torch.tensor([-0.0, float("nan"), float(r), float("inf")]),
+        "b": torch.tensor([True, r % 2 == 1]),
+        "i": torch.arange(3, dtype=torch.int64).reshape(3, 1) + 10 * r,
+    }
+    g = tmesh.all_gather_tree(mesh, tree)
+    b = tmesh.broadcast_tree(mesh, {"x": torch.full((2,), -0.0) if r == mesh.size - 1 else torch.ones(2)},
+                             mesh.size - 1)
+    rng = np.random.default_rng(5)
+    xb = torch.from_numpy(rng.integers(0, 8, (2 * mesh.size, 300, 16), dtype=np.int32))
+    w = torch.from_numpy(rng.random((2 * mesh.size, 300)).astype(np.float32))
+    wy = w * torch.from_numpy(np.where(rng.random((2 * mesh.size, 300)) < 0.5, 1.0, -1.0).astype(np.float32))
+    from repro_torch.kernels import ops as tops
+
+    sharded = tops.edge_scan_sharded(xb, wy, w, mesh=mesh, num_bins=8)
+    whole = tops.edge_scan(xb, wy, w, num_bins=8)
+    return dict(
+        f_bits=g["f"].view(torch.int32).tolist(), b=g["b"].tolist(), i=g["i"].reshape(-1).tolist(),
+        bcast_bits=b["x"].view(torch.int32).tolist(),
+        any0=tmesh.all_reduce(mesh, False, "any"), any1=tmesh.all_reduce(mesh, r == 1, "any"),
+        max=tmesh.all_reduce(mesh, 3 * r, "max"), sum=tmesh.all_reduce(mesh, r + 1, "sum"),
+        objects=tmesh.all_gather_object(mesh, ("rank", r)),
+        edge_scan_equal=all(torch.equal(a, b) for a, b in zip(sharded, whole)),
+        collectives=mesh.collectives, backend=mesh.backend, host_staged=mesh.host_staged,
+        shape=mesh.shape, axis_names=mesh.axis_names,
+    )
+
+
+def _rank_program(mesh):
+    out = {"toy": {name: _run_toy(name, mesh) for name in TOY}}
+    out["sparrow"] = {name: _run_sparrow(name, mesh) for name in SPARROW}
+    out["errors"] = _errors(mesh)
+    out["collectives"] = _collectives(mesh)
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    return {n: tmesh.spawn_world(_rank_program, [CPU] * n, tmp_path_factory.mktemp(f"world{n}"))
+            for n in WORLDS}
+
+
+@pytest.fixture(scope="module")
+def single():
+    """The single-device runs, at the ranks' one intra-op thread
+    (``spawn_world``), so both sides reduce in the same order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return {"toy": {name: _run_toy(name) for name in TOY},
+                "sparrow": {name: _run_sparrow(name) for name in SPARROW}}
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _assert_match(got, want, level):
+    for f in ("certs", "history", "rounds", "messages_accepted"):
+        assert got[f] == want[f], f
+    if "adopted_from" in want:
+        assert got["adopted_from"] == want["adopted_from"]
+    if level == "all":
+        for f in (*COUNTERS, "sim_time", "cost", "published"):
+            assert got.get(f) == want.get(f), f
+
+
+@pytest.mark.parametrize("n", WORLDS)
+@pytest.mark.parametrize("name", list(TOY))
+def test_toy_matches_single_device(worlds, single, n, name):
+    _assert_match(worlds[n][0]["toy"][name], single["toy"][name], TOY[name][3])
+
+
+@pytest.mark.parametrize("n", WORLDS)
+@pytest.mark.parametrize("name", list(SPARROW))
+def test_sparrow_matches_single_device(worlds, single, n, name):
+    got, want = worlds[n][0]["sparrow"][name], single["sparrow"][name]
+    for f in ("certs", "history", "rounds", "messages_accepted", "messages_evicted", "models"):
+        assert got[f] == want[f], f
+    if name.startswith("sparrow_dense"):
+        assert got["messages_sent"] == want["messages_sent"]
+        assert got["messages_discarded"] == want["messages_discarded"]
+    assert min(got["certs"]) < 0.0  # it learned
+    assert got["messages_accepted"] > 0
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_every_rank_returns_the_same_result(worlds, n):
+    res = worlds[n]
+    for r in range(1, n):
+        assert res[r]["toy"] == res[0]["toy"]
+        assert res[r]["sparrow"] == res[0]["sparrow"]
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_gating_shrinks_traffic_but_not_the_run(worlds, single, n):
+    toy = worlds[n][0]["toy"]
+    assert 0 < toy["gated_uniform"]["messages_sent"] < toy["dense_uniform"]["messages_sent"]
+    assert toy["gated_uniform"]["history"] == toy["dense_uniform"]["history"]
+    assert toy["queues_c1"]["messages_evicted"] > 0  # eviction happened, and matched
+    assert toy["auto_capacity"]["inflight_capacity_selected"] >= 1
+    assert toy["faults_queues"]["messages_dropped_injected"] > 0
+    assert toy["faults_queues"]["messages_corrupt_rejected"] > 0
+    assert toy["churn"]["workers_joined"] == 2
+    assert toy["publisher"]["published"]
+    assert toy["single_sender_target_rpd8"]["rounds"] == toy["single_sender_target"]["rounds"] == 10
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_byte_accounting(worlds, n):
+    """The reference's formulas (engine_sharded.py:334-382, one pod) at
+    W workers, n ranks, payload p = 8, k = 1."""
+    toy, p = worlds[n][0]["toy"], 8
+    w = 16
+    assert toy["dense_uniform"]["gossip_bytes"] == w * (p + 4 + 1)
+    assert toy["dense_uniform"]["control_bytes"] == w * 5
+    assert toy["gated_uniform"]["gossip_bytes"] == w * 5 + n * (p + 4)
+    assert toy["gated_top3"]["gossip_bytes"] == w * 5 + n * min(3, w // n) * (p + 4)
+    assert toy["sparse_control_queues"]["control_bytes"] == n * 12
+    assert toy["sparse_control_queues"]["gossip_bytes"] == n * 12 + w * p
+    assert toy["sparse_control_gated"]["gossip_bytes"] == n * 12 + n * p
+    assert toy["dense_uniform"]["mode"] == "dense" and toy["gated_uniform"]["mode"] == "gated"
+    w8 = worlds[n][0]["toy"]["dense_delay2"]
+    assert (w8["gossip_bytes"], w8["control_bytes"]) == (8 * (p + 5), 40)
+
+
+def test_single_device_reports_no_wire(single):
+    res = single["toy"]["gated_uniform"]
+    assert (res["gossip_bytes"], res["control_bytes"], res["mode"]) == (0, 0, "dense")
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_factory_and_refusals(worlds, n):
+    err = worlds[n][0]["errors"]
+    assert err["engine_type"] == "ShardedTMSNEngine"
+    assert err["no_workers_axis"] == ("ValueError", "engine mesh needs a 'workers' axis, got ('data',)")
+    for k in ("pod_mesh", "pods_arg"):
+        assert err[k][0] == "NotImplementedError" and "item 10b" in err[k][1]
+    assert err["indivisible"][0] == "ValueError" and "must divide over" in err["indivisible"][1]
+    assert err["bad_mode"][0] == "ValueError" and "gossip_mode" in err["bad_mode"][1]
+    assert err["bad_device"][0] == "ValueError"
+    if not torch.cuda.is_available():
+        assert err["default_device"][0] == "RuntimeError" and "cuda" in err["default_device"][1]
+    assert err["world_size"][0] == "ValueError" and "world size" in err["world_size"][1]
+
+
+def test_factory_without_a_world():
+    toy = ShardableTorchToy(*_busy(4))
+
+    class OneRank:
+        size, axis_names, device = 1, ("workers",), torch.device(CPU)
+
+    assert type(teng.make_engine(toy, _config(4, None), CPU)) is teng.TMSNEngine
+    assert type(teng.make_engine(toy, _config(4, OneRank()))) is teng.TMSNEngine
+    with pytest.raises(RuntimeError, match="initialized torch.distributed"):
+        tmesh.make_worker_mesh(2, device=CPU)
+    assert tmesh.backend_for(["cuda:0", "cuda:1"]) == "nccl"
+    assert tmesh.backend_for(["cuda:0", "cuda:0"]) == "gloo"
+    assert tmesh.backend_for(["cpu", "cpu"]) == "gloo"
+    assert tmesh.ici_round_seconds(450, bandwidth=450e9) == 1e-9
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_collectives_copy_bits(worlds, n):
+    c = worlds[n][1]["collectives"]  # rank 1's view
+    nan_bits = torch.tensor([float("nan")]).view(torch.int32).item()
+    want_f = []
+    for r in range(n):
+        want_f += torch.tensor([-0.0, float(r), float("inf")]).view(torch.int32).tolist()
+        want_f.insert(len(want_f) - 2, nan_bits)
+    assert c["f_bits"] == want_f  # -0.0 and the NaN payload survive
+    assert c["b"] == [v for r in range(n) for v in (True, r % 2 == 1)]
+    assert c["i"] == [v + 10 * r for r in range(n) for v in range(3)]
+    assert c["bcast_bits"] == torch.full((2,), -0.0).view(torch.int32).tolist()
+    assert (c["any0"], c["any1"], c["max"], c["sum"]) == (0, 1, 3 * (n - 1), n * (n + 1) // 2)
+    assert c["objects"] == [("rank", r) for r in range(n)]
+    assert c["edge_scan_equal"]
+    assert (c["backend"], c["host_staged"], c["shape"], c["axis_names"]) == (
+        "gloo", False, {"workers": n}, ("workers",))
