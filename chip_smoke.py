@@ -12,7 +12,10 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
   build      nvcc builds the kernel library from ``src/repro_torch/kernels/csrc``;
   kernels    the launch floor (a one-element fill); K1 edge_scan, K2
              round_step, K3 queue_ingest against their plain versions at the
-             main path's shapes and at large W (K2 at W=10, 4096 and 10240,
+             main path's shapes, at the sharded and pod ranks' (W=5, K3 with
+             m=2 and 4), the pod phase's single device (W=20) and at large W
+             (K1 at W=256, folding each group of tiles in a block; K2 at
+             W=10, 4096 and 10240,
              bit for bit and on a second launch), K1 also at W=1 (n=2048 and
              n=180 000), K2 also on edge cases (+-0.0 ties, +-inf, NaN, ties
              in cert and src, due=-1, dead rows, C=1, C % 4 != 0, C=3500,
@@ -59,6 +62,22 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              wall and collective host ms per round, K1-K3 launches, bytes per
              round against the reference's formula; launches_sharded in the
              kernels line sums every rank;
+  pod        the sharded engine on the two-tier (pod, workers) mesh: one
+             world of 4 gloo ranks sharing the card in 2 pods of 2
+             (spawn_world(..., pods=2)). pod_main, the main configuration at
+             W=20 (W_local=5, W_pod=10; only W and the depth differ from
+             main), cross_pod_every_k = cross_pod_top_k = 1, dense and gated
+             gossip, each equal to a single-device W=20 run on the card in
+             certificates, history, accepted and evicted; pod_k8, the same at
+             cross_pod_every_k=8 (its divergence from pod_main reported, its
+             DCN bytes 1/8 of pod_main's, ICI bytes the same, certificates
+             monotone); pod_partition, pod_main dense under a partition
+             window of rounds [50, 120) (messages dropped, monotone). Per
+             rank: wall and collective host ms per round, collectives per
+             round by tier, K1-K3 launches (K3 twice a round at k=1: tier 1
+             and the flush), ICI and DCN bytes per round against the
+             reference's formulas, and the wire seconds derived from them;
+             launches_pod in the kernels line sums every rank;
   k4_model   K4 over the training split on the best model of main, the
              whole rule and its second half: the margins must match
              predict_margin and margin_delta_oracle;
@@ -98,6 +117,9 @@ FP32_OPS_PER_S = 67e12
 
 ROUNDS = 200
 SEED = 0
+#: workers of the pod phase: W_local = 5 on each of its 4 ranks
+POD_W = 20
+POD_RANKS, PODS = 4, 2
 #: events of the sim_main phase (chosen so that it ends within about a minute)
 SIM_EVENTS = 2000
 ENGINE_KERNELS = ("edge_scan", "round_step", "queue_ingest")
@@ -133,9 +155,13 @@ def run_rank(eng, mesh) -> dict:
 
     from repro_torch.kernels import ops
 
+    # the pod's subgroup (tier 1) and the world (tier 2) keep their own
+    # counts; a 1-D mesh is its own pod
+    tiers = (mesh,) if mesh.intra is mesh else (mesh.intra, mesh)
     torch.cuda.synchronize(mesh.device)
     ops.reset_launches()
-    mesh.collective_seconds, mesh.collectives = 0.0, 0
+    for t in tiers:
+        t.collective_seconds, t.collectives = 0.0, 0
     t0 = time.perf_counter()
     res = eng.run()
     torch.cuda.synchronize(mesh.device)
@@ -147,8 +173,11 @@ def run_rank(eng, mesh) -> dict:
         messages_discarded=res.messages_discarded, messages_evicted=res.messages_evicted,
         inflight_occupancy_peak=res.inflight_occupancy_peak, gossip_bytes=res.gossip_bytes_per_round,
         control_bytes=res.control_bytes_per_round, gossip_mode=res.gossip_mode,
-        payload_bytes=eng._payload_bytes, wall_s=wall, collective_s=mesh.collective_seconds,
-        collectives=mesh.collectives, launches=dict(ops.LAUNCHES),
+        payload_bytes=eng._payload_bytes, wall_s=wall, collective_s=sum(t.collective_seconds for t in tiers),
+        collectives=sum(t.collectives for t in tiers), tier_collective_s=[t.collective_seconds for t in tiers],
+        tier_collectives=[t.collectives for t in tiers], messages_sent_dcn=res.messages_sent_dcn,
+        messages_dropped_injected=res.messages_dropped_injected, ici_bytes=res.gossip_bytes_per_round_ici,
+        dcn_bytes=res.gossip_bytes_per_round_dcn, launches=dict(ops.LAUNCHES),
     )
 
 
@@ -231,6 +260,47 @@ def sharded_toy_rank(mesh, w: int, rounds: int) -> dict:
 
     ecfg = dataclasses.replace(engine_config(w, rounds, True), mesh=mesh)
     return run_rank(make_engine(ShardToy(w, mesh.device), ecfg), mesh)
+
+
+def pod_runs() -> dict:
+    """The pod phase's runs: tag -> engine config changes from
+    ``engine_config(POD_W, ROUNDS, True)`` with k = 1."""
+    from repro_torch.core.engine import FaultPlan
+
+    return {
+        "pod_main dense": dict(gossip_mode="dense"),
+        "pod_main gated": dict(gossip_mode="gated"),
+        "pod_k8": dict(gossip_mode="dense", cross_pod_every_k=8),
+        "pod_partition": dict(gossip_mode="dense",
+                              fault_plan=FaultPlan(partition_start=50, partition_stop=120, seed=1)),
+    }
+
+
+def pod_worker(device):
+    """The main configuration's data and worker at W = POD_W, kernels on."""
+    from repro_torch.boosting.batched_sparrow import BatchedSparrowWorker
+    from repro_torch.configs.sparrow import DATA, sparrow_config
+    from repro_torch.data.splice import make_splice_like, train_test_split
+
+    xb, y, _ = make_splice_like(DATA, device=device)
+    xtr, ytr, _, _ = train_test_split(xb, y)
+    base = sparrow_config(POD_W)
+    cfg = dataclasses.replace(base, scanner=base.scanner._replace(use_kernel=True))
+    return BatchedSparrowWorker(xtr, ytr, cfg, device=device)
+
+
+def pod_rank(mesh) -> dict:
+    """One rank of the ``pod`` phase: every run of :func:`pod_runs` on the
+    (pod, workers) mesh, through ``make_engine``."""
+    from repro_torch.core.engine import make_engine
+
+    worker = pod_worker(mesh.device)
+    out = {}
+    for tag, kw in pod_runs().items():
+        ecfg = dataclasses.replace(engine_config(POD_W, ROUNDS, True), mesh=mesh, cross_pod_every_k=1,
+                                   cross_pod_top_k=1)
+        out[tag] = run_rank(make_engine(worker, dataclasses.replace(ecfg, **kw)), mesh)
+    return out
 
 
 def main() -> int:
@@ -331,10 +401,12 @@ def main() -> int:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
                        library_ms=library_ms, device_ms=dev_ms)
 
-    # K1 edge_scan: the engine (W=10), large W, the event simulator's scan
-    # segments (W=1) and exact greedy over the training split (W=1, n=180 000)
-    for nw, n, d, nb in [(10, 2048, 64, 8), (5, 2048, 64, 8), (256, 2048, 64, 8), (1, 2048, 64, 8),
-                         (1, 180_000, 64, 8)]:
+    # K1 edge_scan: the engine (W=10), one rank of the sharded and pod
+    # engines (W=5), the pod phase's single device (W=20), large W, the
+    # event simulator's scan segments (W=1) and exact greedy over the
+    # training split (W=1, n=180 000)
+    for nw, n, d, nb in [(10, 2048, 64, 8), (5, 2048, 64, 8), (20, 2048, 64, 8), (256, 2048, 64, 8),
+                         (1, 2048, 64, 8), (1, 180_000, 64, 8)]:
         xb = torch.randint(0, nb, (nw, n, d), generator=g, device=dev, dtype=torch.int32)
         w = torch.rand((nw, n), generator=g, device=dev) + 0.05
         y = torch.where(torch.rand((nw, n), generator=g, device=dev) < 0.5, 1.0, -1.0)
@@ -376,7 +448,7 @@ def main() -> int:
         nbytes = xb.numel() * 4 + 2 * nw * n * 4 + nw * d * nb * 4 + 3 * nw * 4
         bnd = bound(nbytes, nw * n * d * nb + 3 * nw * n)
         plan = ops.edge_scan_plan(nw, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        log(f"phase kernels K1 edge_scan W={nw} n={n} d={d} B={nb} plan(tile_rows,tiles,group)={plan} "
+        log(f"phase kernels K1 edge_scan W={nw} n={n} d={d} B={nb} plan(tile_rows,tiles,group,fold)={plan} "
             f"deterministic={det} max_abs_err={err:.3g} ms={ms:.5f} device_ms={dev_ms} "
             f"plain_ms={plain_ms:.5f} index_add_ms={lib_ms:.5f} index_add_device_ms={lib_dev_ms} "
             f"bound_ms={bnd[0]:.5f} ({bnd[1]})")
@@ -404,10 +476,11 @@ def main() -> int:
         return all(torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))
                    for a, b, c in zip(got, again, plain))
 
-    # K2 round_step: the engine (W=10), one rank of the sharded engine (W=5,
-    # and W=1024 of the sharded toy) and the large-W queues (W=4096, 10240)
+    # K2 round_step: the engine (W=10), one rank of the sharded and pod
+    # engines (W=5, and W=1024 of the sharded toy), the pod phase's single
+    # device (W=20) and the large-W queues (W=4096, 10240)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for nw in (10, 5, 1024, 4096, 10240):
+    for nw in (10, 5, 20, 1024, 4096, 10240):
         cap = 64
         args = queue_leaves(nw, cap) + (
             -torch.rand((nw,), generator=g, device=dev), torch.rand((nw,), generator=g, device=dev) < 0.8,
@@ -488,8 +561,10 @@ def main() -> int:
     log(f"phase kernels K2 round_step edge_cases={k2_cases} bitwise_equal=True repeat=True")
 
     # K3 queue_ingest: the engine (W=10), one rank of the sharded engine
-    # (W=5 with a candidate from each of 2 ranks; W=1024 from 4) and W=4096
-    for nw, cands in ((10, (1, 8)), (5, (2,)), (1024, (4,)), (4096, (1, 8))):
+    # (W=5 with a candidate from each of 2 ranks; W=1024 from 4), one rank
+    # of the pod engine (W=5: tier 1 from the pod's 2 ranks, the flush
+    # from all 4), the pod phase's single device (W=20) and W=4096
+    for nw, cands in ((10, (1, 8)), (5, (2, 4)), (20, (1,)), (1024, (4,)), (4096, (1, 8))):
         cap = 64
         qc, qd, qs, ql = queue_leaves(nw, cap)
         for m in cands:
@@ -1005,6 +1080,109 @@ def main() -> int:
     for k in ENGINE_KERNELS:
         records[k]["launches_sharded"] = sharded_launches[k]
         records[k]["launches"] += sharded_launches[k]
+
+    # ------------------------------------------------------------------- pod
+    # the two-tier (pod, workers) mesh: 4 gloo ranks sharing the card in 2
+    # pods of 2, every run in one world, against one device at W = POD_W
+    from repro_torch.launch.mesh import dcn_round_seconds, ici_round_seconds
+
+    t_pod = time.perf_counter()
+    pod_single_worker = pod_worker("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pod_single = TMSNEngine(pod_single_worker, engine_config(POD_W, ROUNDS, True), device="cuda").run()
+    torch.cuda.synchronize()
+    pod_single_wall = time.perf_counter() - t0
+    del pod_single_worker
+    log(f"phase pod single_device W={POD_W} rounds={pod_single.rounds} wall_ms_per_round="
+        f"{pod_single_wall / pod_single.rounds * 1e3:.4f} best_cert={min(pod_single.final_certificates):.6f} "
+        f"history={len(pod_single.history)} sent={pod_single.messages_sent} "
+        f"accepted={pod_single.messages_accepted} evicted={pod_single.messages_evicted}")
+    pod_ranks = spawn_world(pod_rank, ["cuda:0"] * POD_RANKS, world_dir("pod"), pods=PODS)
+    pod_launches = dict.fromkeys(ENGINE_KERNELS, 0)
+    wpp, w_pod = POD_RANKS // PODS, POD_W // PODS
+    pod_fields = rank_fields + ("messages_sent_dcn", "messages_dropped_injected", "ici_bytes", "dcn_bytes")
+
+    def pod_formula(out, every_k):
+        """(ICI, DCN, control) bytes per round by the reference's formulas
+        under sparse control, k = 1 candidate a rank on each tier."""
+        p = out["payload_bytes"]
+        ici = wpp * 12 + (w_pod * p if out["gossip_mode"] == "dense" else wpp * p)
+        dcn = (POD_RANKS * p) // every_k + (POD_RANKS * 12) // every_k
+        return ici, dcn, wpp * 12 + (POD_RANKS * 12) // every_k
+
+    def monotone(tag, out):
+        certs = np.asarray(out["final_certificates"])
+        if out["rounds"] != ROUNDS or not np.all(np.isfinite(certs)):
+            raise AssertionError(f"pod {tag}: rounds={out['rounds']}, certificates {certs}")
+        for wid in range(POD_W):
+            trace = [h[2] for h in out["history"] if h[1] == wid]
+            if any(b > a for a, b in zip(trace, trace[1:])) or not np.all(np.isfinite(trace)):
+                raise AssertionError(f"pod {tag}: certificate of worker {wid} rose or is not finite")
+
+    for tag, kw in pod_runs().items():
+        every_k = kw.get("cross_pod_every_k", 1)
+        first = pod_ranks[0][tag]
+        for rr in pod_ranks:
+            out = rr[tag]
+            if (out["engine"], out["backend"], out["host_staged"], out["gossip_mode"]) != (
+                    "ShardedTMSNEngine", "gloo", True, kw["gossip_mode"]):
+                raise AssertionError(f"pod {tag}: {out['engine']} on {out['backend']}, mode {out['gossip_mode']}")
+            if any(out[f] != first[f] for f in pod_fields):
+                raise AssertionError(f"pod {tag}: rank {out['rank']} differs from rank 0")
+            for k in ENGINE_KERNELS:
+                if out["launches"][k] < out["rounds"]:
+                    raise AssertionError(f"pod {tag} rank {out['rank']}: {k} launched {out['launches'][k]} "
+                                         f"times in {out['rounds']} rounds")
+                pod_launches[k] += out["launches"][k]
+            formula = pod_formula(out, every_k)
+            if (out["ici_bytes"], out["dcn_bytes"], out["control_bytes"]) != formula:
+                raise AssertionError(f"pod {tag}: ICI/DCN/control bytes per round {out['ici_bytes']}, "
+                                     f"{out['dcn_bytes']}, {out['control_bytes']}; the reference's formulas "
+                                     f"give {formula}")
+            n = out["rounds"]
+            log(f"phase pod {tag} rank={out['rank']} pod={out['rank'] // wpp} rounds={n} wall_s={out['wall_s']:.3f} "
+                f"wall_ms_per_round={out['wall_s'] / n * 1e3:.4f} "
+                f"collective_ms_per_round={out['collective_s'] / n * 1e3:.4f} "
+                f"collective_ms_per_round_tier1={out['tier_collective_s'][0] / n * 1e3:.4f} "
+                f"collective_ms_per_round_tier2={out['tier_collective_s'][1] / n * 1e3:.4f} "
+                f"collectives_per_round_tier1={out['tier_collectives'][0] / n:.3f} "
+                f"collectives_per_round_tier2={out['tier_collectives'][1] / n:.3f} "
+                f"sent={out['messages_sent']} sent_dcn={out['messages_sent_dcn']} "
+                f"accepted={out['messages_accepted']} discarded={out['messages_discarded']} "
+                f"evicted={out['messages_evicted']} dropped={out['messages_dropped_injected']} "
+                f"ici_bytes_per_round={out['ici_bytes']} dcn_bytes_per_round={out['dcn_bytes']} "
+                f"control_bytes_per_round={out['control_bytes']} formula={list(formula)} "
+                f"derived_ici_round_s={ici_round_seconds(out['ici_bytes']):.4g} "
+                f"derived_dcn_round_s={dcn_round_seconds(out['dcn_bytes']):.4g} "
+                f"launches={json.dumps(out['launches'])}")
+        if tag.startswith("pod_main"):
+            for f in adopt_fields:
+                if first[f] != getattr(pod_single, f):
+                    raise AssertionError(f"pod {tag}: {f} differs from the single-device W={POD_W} run")
+            if not 0 < first["messages_sent_dcn"] < first["messages_sent"]:
+                raise AssertionError(f"pod {tag}: sent_dcn {first['messages_sent_dcn']} of {first['messages_sent']}")
+            log(f"phase pod {tag} == single device W={POD_W}: certificates, history ({len(first['history'])} "
+                f"entries), accepted ({first['messages_accepted']}), evicted ({first['messages_evicted']}); sent "
+                f"{first['messages_sent']} (single {pod_single.messages_sent}), sent_dcn {first['messages_sent_dcn']}")
+        else:
+            monotone(tag, first)
+    k1, k8, part = (pod_ranks[0][t] for t in ("pod_main dense", "pod_k8", "pod_partition"))
+    if k8["dcn_bytes"] * 8 != k1["dcn_bytes"] or k8["ici_bytes"] != k1["ici_bytes"]:
+        raise AssertionError(f"pod pod_k8: DCN bytes {k8['dcn_bytes']} (k=1: {k1['dcn_bytes']}), "
+                             f"ICI bytes {k8['ici_bytes']} (k=1: {k1['ici_bytes']})")
+    log(f"phase pod pod_k8 divergence from pod_main: history {len(k8['history'])} vs {len(k1['history'])}, "
+        f"best_cert {min(k8['final_certificates']):.6f} vs {min(k1['final_certificates']):.6f}, "
+        f"sent_dcn {k8['messages_sent_dcn']} vs {k1['messages_sent_dcn']}, accepted {k8['messages_accepted']} vs "
+        f"{k1['messages_accepted']}; dcn_bytes_per_round {k8['dcn_bytes']} = {k1['dcn_bytes']} / 8")
+    if not part["messages_dropped_injected"] > 0:
+        raise AssertionError("pod pod_partition: no message dropped in the partition window")
+    log(f"phase pod pod_partition dropped={part['messages_dropped_injected']} history={len(part['history'])} "
+        f"best_cert={min(part['final_certificates']):.6f} (pod_main {min(k1['final_certificates']):.6f})")
+    log(f"phase pod ok seconds={time.perf_counter() - t_pod:.3f} launches={json.dumps(pod_launches)}")
+    for k in ENGINE_KERNELS:
+        records[k]["launches_pod"] = pod_launches[k]
+        records[k]["launches"] += pod_launches[k]
 
     # -------------------------------------------------------------- k4_model
     # K4 on the model main trained: from zero margins, margin' is the

@@ -1,7 +1,7 @@
 """TMSN core: certificates, stopping rules, protocol, the event
 simulator, the single-device round engine and the engine sharded over a
-1-D worker mesh; counterpart of ``src/repro/core`` (the two-tier pod
-mesh is not ported yet)."""
+1-D or a two-tier (pod, workers) worker mesh; counterpart of
+``src/repro/core``."""
 
 from repro_torch.core.ess import effective_sample_size
 from repro_torch.core.stopping import (

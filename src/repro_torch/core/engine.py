@@ -37,9 +37,9 @@ reference's faulted run bit for bit; ``spare_slots`` and a
 :class:`MembershipPlan` add joins and leaves; :meth:`TMSNEngine.attach_publisher`
 publishes the best model at the reference's chunk boundaries; and
 ``inflight_capacity="auto"`` sizes the queues from a warm-up probe.
-:func:`make_engine` sends a multi-rank ``("workers",)`` mesh to the
-sharded engine (:mod:`repro_torch.core.engine_sharded`); a
-``(pod, workers)`` mesh is not ported yet (ROADMAP.md queue 1 item 10b).
+:func:`make_engine` sends a multi-rank ``("workers",)`` or two-tier
+``("pod", "workers")`` mesh to the sharded engine
+(:mod:`repro_torch.core.engine_sharded`).
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ from repro_torch.core.worker import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.launch.mesh import POD_DEFERRED
 
 #: multiplier on the warm-up probe's ``inflight_occupancy_peak`` when
 #: ``inflight_capacity="auto"`` sizes the pending queues
@@ -390,7 +389,8 @@ class EngineConfig:
         default_factory=lambda: _env_float("REPRO_PUBLISH_EPS", 0.0)
     )
     #: worker mesh (repro_torch.launch.mesh.make_worker_mesh): make_engine
-    #: shards a multi-rank ("workers",) mesh; None = one device
+    #: shards a multi-rank ("workers",) or ("pod", "workers") mesh; None =
+    #: one device
     mesh: Any = None
 
 
@@ -632,6 +632,10 @@ class EngineState(NamedTuple):
     accepted: torch.Tensor  # () i32
     discarded: torch.Tensor  # () i32
     cost_total: torch.Tensor  # () f32
+    #: (W,) bool: workers whose improvement waits for the next cross-pod
+    #: flush (all False off the pod mesh)
+    xpend: torch.Tensor
+    sent_dcn: torch.Tensor  # () i32 pushes that crossed a pod boundary
     evicted: torch.Tensor  # () i32 capacity evictions (0 on the dense path)
     occ_peak: torch.Tensor  # () i32 peak pre-eviction queue occupancy
     dropped_inj: torch.Tensor  # () i32 messages dropped by FaultPlan injection
@@ -639,7 +643,7 @@ class EngineState(NamedTuple):
 
 
 #: EngineState's traffic counters, reduced over ranks at the end of a run
-_COUNTERS = ("sent", "accepted", "discarded", "cost_total", "evicted", "occ_peak", "dropped_inj",
+_COUNTERS = ("sent", "accepted", "discarded", "cost_total", "sent_dcn", "evicted", "occ_peak", "dropped_inj",
              "corrupt_rej")
 
 
@@ -680,13 +684,15 @@ class _Advanced(NamedTuple):
     cost: torch.Tensor
 
 
-def _snap_ring(ring, models, slot: int, bcast: torch.Tensor):
-    """Write the broadcasters' ``(W, ...)`` models into ring slot
-    ``slot``; the other workers keep their (dead) old entry."""
+def _snap_ring(ring, models, slot: int, bcast: torch.Tensor, lo: int = 0):
+    """Write the broadcasters' ``(m, ...)`` models into ring slot ``slot``
+    at workers ``[lo, lo + m)`` (every worker by default); the other
+    workers keep their (dead) old entry."""
 
     def snap(buf: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         out = buf.clone()
-        out[slot] = torch.where(bcast.reshape((-1,) + (1,) * (m.dim() - 1)), m, buf[slot])
+        hi = lo + m.shape[0]
+        out[slot, lo:hi] = torch.where(bcast.reshape((-1,) + (1,) * (m.dim() - 1)), m, buf[slot, lo:hi])
         return out
 
     return tree_map(snap, ring, models)
@@ -740,8 +746,6 @@ class TMSNEngine:
             raise ValueError(f"publish_every_k must be >= 0, got {config.publish_every_k}")
         if not config.publish_eps >= 0.0:  # also rejects NaN
             raise ValueError(f"publish_eps must be >= 0, got {config.publish_eps}")
-        if config.mesh is not None and "pod" in tuple(getattr(config.mesh, "axis_names", ())):
-            raise NotImplementedError(POD_DEFERRED)
         #: serving publisher (see attach_publisher); None keeps run() free
         #: of the per-boundary certificate fetch
         self._publisher: Any = None
@@ -845,8 +849,8 @@ class TMSNEngine:
             if not fplan.active:
                 fplan = None  # an all-zero plan is the clean run
         self._fault: FaultPlan | None = fplan
-        #: pod of each worker on a pod mesh; None on one device, which
-        #: makes the partition window inert
+        #: (W,) pod of each global worker id, set by the sharded engine on a
+        #: pod mesh; None otherwise, which makes the partition window inert
         self._pod_of = None
 
         self._has_resample = has_resample_hooks(worker)
@@ -1003,6 +1007,8 @@ class TMSNEngine:
             accepted=zi,
             discarded=zi,
             cost_total=torch.zeros((), dtype=torch.float32, device=dev),
+            xpend=torch.zeros((nr,), dtype=torch.bool, device=dev),
+            sent_dcn=zi,
             evicted=zi,
             occ_peak=zi,
             dropped_inj=zi,
@@ -1185,6 +1191,14 @@ class TMSNEngine:
         inflight = torch.where(push_mask, cert_mat.unsqueeze(2), inflight)
         return inflight, push2.sum(dtype=torch.int32), zero, zero, n_dropped, n_rejected
 
+    @staticmethod
+    def _merge_pushed(a: tuple, b: tuple) -> tuple:
+        """Two pushes of one round as one ``pushed`` tuple of
+        :meth:`_next_state`, ``(n_pushed, n_evicted, occ_pre_max,
+        n_dropped, n_rejected)``: counts add, the occupancy peak is the
+        larger."""
+        return (a[0] + b[0], a[1] + b[1], torch.maximum(a[2], b[2]), a[3] + b[3], a[4] + b[4])
+
     def _next_state(self, state: EngineState, adv: _Advanced, inflight, ring, pushed):
         n_pushed, n_evicted, occ_pre_max, n_dropped, n_rejected = pushed
         new_state = EngineState(
@@ -1200,6 +1214,8 @@ class TMSNEngine:
             accepted=state.accepted + adv.n_taken,
             discarded=state.discarded + (adv.n_arrivals - adv.n_taken),
             cost_total=state.cost_total + adv.cost.sum(),
+            xpend=state.xpend,
+            sent_dcn=state.sent_dcn,
             evicted=state.evicted + n_evicted,
             occ_peak=torch.maximum(state.occ_peak, occ_pre_max),
             dropped_inj=state.dropped_inj if self._fault is None else state.dropped_inj + n_dropped,
@@ -1253,6 +1269,7 @@ class TMSNEngine:
             accepted=fin["accepted"],
             discarded=fin["discarded"],
             payload_bytes=self._payload_bytes,
+            sent_dcn=fin["sent_dcn"],
             evicted=fin["evicted"],
             control_bytes=(ictrl + dctrl) * rounds,
             dropped_injected=fin["dropped_inj"],
@@ -1308,9 +1325,10 @@ def make_engine(
     """Build the engine for ``config.mesh``, as the reference does:
     ``None`` or a mesh of one rank gives the single-device
     :class:`TMSNEngine`, a multi-rank mesh with a ``workers`` axis the
-    :class:`~repro_torch.core.engine_sharded.ShardedTMSNEngine` (a
-    ``(pod, workers)`` mesh raises: ROADMAP.md queue 1 item 10b).
-    ``device`` defaults to the mesh's device, else ``"cuda"``."""
+    :class:`~repro_torch.core.engine_sharded.ShardedTMSNEngine`:
+    single-tier on a ``("workers",)`` mesh, two-tier on a
+    ``("pod", "workers")`` mesh. ``device`` defaults to the mesh's
+    device, else ``"cuda"``."""
     mesh = config.mesh
     if mesh is None or mesh.size == 1:
         if device is None:

@@ -1,6 +1,6 @@
-"""The TMSN round engine sharded over a 1-D ``("workers",)`` mesh of
-``torch.distributed`` ranks; counterpart of
-``src/repro/core/engine_sharded.py`` (its single-tier parts).
+"""The TMSN round engine sharded over a 1-D ``("workers",)`` or a
+two-tier ``("pod", "workers")`` mesh of ``torch.distributed`` ranks;
+counterpart of ``src/repro/core/engine_sharded.py``.
 
 Every rank is a process that advances only its ``W_local = W / n_dev``
 workers, rows ``[rank * W_local, (rank + 1) * W_local)``, and the ranks
@@ -21,6 +21,24 @@ independent machines do. Relative to the single-device engine:
     device offers ``k``;
   * the ``(D, W)`` snapshot ring is replicated on every rank and fed by
     the gathered payloads (scattered by global id under gated gossip);
+  * on a pod mesh the round's gather runs over the rank's pod only
+    (``WorkerMesh.intra``, a process subgroup: tier 1); under dense
+    control the pod's ``(W_pod,)`` certificates and flags are scattered
+    into ``(W,)``-wide arrays at the pod's block
+    ``[p * W_pod, (p + 1) * W_pod)``. Improvements also
+    collect in the pending mask ``EngineState.xpend``, and every
+    ``cross_pod_every_k`` rounds (a host ``if`` on the round number, the
+    same on every rank) each rank offers its top-``cross_pod_top_k``
+    pending candidates — certificate, global id, payload — in one gather
+    over the world (tier 2, pod-major). Receivers write the payloads into
+    their ring and push only cross-pod sources (same-pod destinations
+    heard tier 1), through K3 under sparse control; those pushes count
+    in ``sent`` and in ``sent_dcn``. Each rank's ring is its pod's
+    replica (the reference's ``n_pods * D`` rows sharded over ``pod``
+    are one SPMD program's way of holding the same thing). At
+    ``cross_pod_every_k = 1`` under uniform delay the pod engine gives
+    the flat engine's certificates, history and adoptions bit for bit;
+    at k > 1 it is a measured approximation;
   * the worker's per-round scan (kernel K1 through the scanner) runs on
     each rank over its own rows: one launch per rank per round;
   * counters are per-rank partials, gathered once at the end of the run
@@ -69,7 +87,6 @@ from repro_torch.core.engine import (
 from repro_torch.core.worker import BatchedTMSNWorker, export_payload_rows, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (
-    POD_DEFERRED,
     WorkerMesh,
     all_gather_object,
     all_gather_tree,
@@ -79,9 +96,10 @@ from repro_torch.launch.mesh import (
 
 
 class ShardedTMSNEngine(TMSNEngine):
-    """Round-based TMSN run over a 1-D ``("workers",)`` mesh: this rank's
-    share of it. Every rank of the mesh constructs the engine with the
-    same worker and config and calls :meth:`run` together.
+    """Round-based TMSN run over a 1-D ``("workers",)`` mesh, or two-tier
+    over a ``("pod", "workers")`` mesh: this rank's share of it. Every
+    rank of the mesh constructs the engine with the same worker and
+    config and calls :meth:`run` together.
 
     ``device`` defaults to the mesh's device and must be it; the
     worker's tensors must live there too."""
@@ -96,9 +114,7 @@ class ShardedTMSNEngine(TMSNEngine):
         if mesh is None:
             raise ValueError("ShardedTMSNEngine needs EngineConfig.mesh")
         names = tuple(mesh.axis_names)
-        if names == ("pod", "workers"):
-            raise NotImplementedError(POD_DEFERRED)
-        if names != ("workers",):
+        if names not in (("workers",), ("pod", "workers")):
             raise ValueError(
                 "engine mesh must have axes ('workers',) or ('pod', 'workers'), "
                 f"got {names}"
@@ -109,9 +125,12 @@ class ShardedTMSNEngine(TMSNEngine):
             )
         self._mesh = mesh
         self._n_dev = mesh.size
+        self._n_pods = mesh.pods
+        self._wpp = mesh.shape["workers"]  # ranks a pod
         if config.n_workers % self._n_dev:
             raise ValueError(f"n_workers={config.n_workers} must divide over {self._n_dev} devices")
         self._w_local = config.n_workers // self._n_dev
+        self._w_pod = config.n_workers // self._n_pods  # workers tier 1 gathers
         dev = mesh.device if device is None else resolve_device(device)
         if dev != mesh.device:
             raise ValueError(f"device {dev} is not the mesh rank's device {mesh.device}")
@@ -121,27 +140,47 @@ class ShardedTMSNEngine(TMSNEngine):
         # the reference's _ShardConsts: every per-worker constant sliced to
         # this rank's rows (delay as [local dst, src])
         self._rows = _Rows(*(a[lo : lo + self._w_local].contiguous() for a in self._rows))
+        if self._n_pods > 1:
+            # realizes the FaultPlan partition window (cross-pod edges)
+            self._pod_of = self._all_ids // self._w_pod
 
-    # ----- traffic accounting (ref engine_sharded.py:334-385, one pod) ---
+    # ----- traffic accounting (ref engine_sharded.py:334-382) -----------
     def _gossip_split(self) -> tuple[int, int]:
         p = self._payload_bytes
-        ici_ctrl, _ = self._control_split()
+        ici_ctrl, dcn_ctrl = self._control_split()
         if self.config.gossip_mode == "gated":
-            # control plane + k candidate payloads per rank; under dense
-            # control each payload also carries its int32 global id
+            # control plane + k candidate payloads per rank of the pod;
+            # under dense control each payload also carries its int32 id
             k = min(int(self.config.gossip_top_k), self._w_local)
-            return ici_ctrl + self._n_dev * k * (p + (0 if self._control_sparse else 4)), 0
-        # dense payloads: every worker's model, every round
-        return ici_ctrl + self.config.n_workers * p, 0
+            ici = ici_ctrl + self._wpp * k * (p + (0 if self._control_sparse else 4))
+        else:
+            # dense payloads: every pod worker's model, every round
+            ici = ici_ctrl + self._w_pod * p
+        if self._n_pods == 1:
+            return ici, 0
+        # cross-pod tier: top-k pending payloads per rank, gathered over
+        # every rank each cross_pod_every_k rounds, amortized per round
+        kx = min(int(self.config.cross_pod_top_k), self._w_local)
+        return ici, (self._n_dev * kx * p) // int(self.config.cross_pod_every_k) + dcn_ctrl
 
     def _control_split(self) -> tuple[int, int]:
-        """Dense control: f32 certificate + flag per worker, every round
-        (5 B each); sparse control: (cert, global id, round) triples for
-        each rank's top-k candidates (12 B each), independent of W."""
+        """(ICI, DCN) control bytes per round. Dense control: f32
+        certificate + flag per pod worker, every round (5 B each); sparse
+        control: (cert, global id, round) triples for each pod rank's
+        top-k candidates (12 B each), independent of W. The cross-pod
+        tier ships cert + id per flush candidate under dense control
+        (8 B) and the triple under sparse (12 B), amortized over
+        ``cross_pod_every_k``."""
         if self._control_sparse:
             k = min(int(self.config.gossip_top_k), self._w_local)
-            return self._n_dev * k * 12, 0
-        return self.config.n_workers * 5, 0
+            ici = self._wpp * k * 12
+        else:
+            ici = self._w_pod * 5
+        if self._n_pods == 1:
+            return ici, 0
+        kx = min(int(self.config.cross_pod_top_k), self._w_local)
+        per = 12 if self._control_sparse else 8
+        return ici, (self._n_dev * kx * per) // int(self.config.cross_pod_every_k)
 
     def _gossip_mode(self) -> str:
         return self.config.gossip_mode
@@ -185,50 +224,113 @@ class ShardedTMSNEngine(TMSNEngine):
         out["models"] = g["models"]
         return out
 
-    # ----- gossip over the mesh (ref engine_sharded.py:500-750, one pod) ---
+    # ----- the round ------------------------------------------------------
+    def _round_step(self, state: EngineState):
+        """Steps 1-3, tier 1, and on a pod mesh the pending mask and, every
+        ``cross_pod_every_k`` rounds, the tier-2 flush (its pushes count
+        in ``sent`` and ``sent_dcn``)."""
+        adv = self._advance(state)
+        inflight, ring, pushed = self._gossip(state, adv)
+        if self._n_pods == 1:
+            return self._next_state(state, adv, inflight, ring, pushed)
+        xpend = state.xpend | adv.improved
+        n_dcn = 0
+        if state.round % int(self.config.cross_pod_every_k) == 0:
+            inflight, ring, xpend, pushed_x = self._flush(state.round, adv, inflight, ring, xpend)
+            n_dcn = pushed_x[0]
+            pushed = self._merge_pushed(pushed, pushed_x)
+        new_state, info = self._next_state(state, adv, inflight, ring, pushed)
+        return new_state._replace(xpend=xpend, sent_dcn=state.sent_dcn + n_dcn), info
+
+    # ----- tier 1: gossip inside the pod (ref engine_sharded.py:500-750) ---
     def _gossip(self, state: EngineState, adv: _Advanced):
-        """Steps 4-5 on this rank's rows: ONE all_gather of the round's
-        certificates, flags and payloads (or of each rank's top-k
-        candidates), the ring written from what arrived, and the pushes
-        into this rank's destination rows."""
+        """Steps 4-5 on this rank's rows: ONE all_gather over the pod (the
+        whole mesh on a 1-D one) of the round's certificates, flags and
+        payloads (or of each rank's top-k candidates), the ring written
+        from what arrived, and the pushes into this rank's destination
+        rows."""
         cfg, w, r = self.config, self.config.n_workers, state.round
         certs, slot, gated = adv.certs, r % self._depth, cfg.gossip_mode == "gated"
+        tier = self._mesh.intra
+        base = self._mesh.pod * self._w_pod  # the pod's first global id
         if self._control_sparse or gated:
             k = min(int(cfg.gossip_top_k), self._w_local)
             rows, valid = self._top_k_candidates(adv.improved, certs, k)
             cand_ids = torch.where(valid, self._rows.ids[rows], _i32(w, certs))
         if self._control_sparse:
-            # the (n_dev * k,) candidate triples, with their payloads
-            # (gated) or every worker's model (dense payload plane)
+            # the (wpp * k,) candidate triples, with their payloads
+            # (gated) or every pod worker's model (dense payload plane)
             payload = (export_payload_rows(self.worker, adv.wstate, rows) if gated
                        else self.worker.export_models(adv.wstate))
-            g = all_gather_tree(self._mesh, {
+            g = all_gather_tree(tier, {
                 "certs": torch.where(valid, certs[rows], _inf(certs)), "ids": cand_ids, "models": payload,
             })
             ok = g["ids"] < w  # padding carries id W
             gids = g["ids"][ok].long()
             # only candidates are ever read back from the ring
-            ring = _scatter_ring(state.ring, g["models"], slot, gids, ok if gated else gids)
+            ring = _scatter_ring(state.ring, g["models"], slot, gids, ok if gated else gids - base)
             inflight, *pushed = self._push_candidates(adv.inflight, g["certs"], g["ids"], adv, r)
             return inflight, ring, pushed
         if gated:
-            # every worker's certificate and flag; the payloads of each
-            # rank's top-k improvers only, scattered by global id
+            # every pod worker's certificate and flag; the payloads of
+            # each rank's top-k improvers only, scattered by global id
             bcast = torch.zeros(certs.shape, dtype=torch.bool, device=self.device)
             bcast[rows] = valid
-            g = all_gather_tree(self._mesh, {
+            g = all_gather_tree(tier, {
                 "certs": certs, "bcast": bcast, "ids": cand_ids,
                 "models": export_payload_rows(self.worker, adv.wstate, rows),
             })
             ok = g["ids"] < w
             ring = _scatter_ring(state.ring, g["models"], slot, g["ids"][ok].long(), ok)
         else:
-            g = all_gather_tree(self._mesh, {
+            g = all_gather_tree(tier, {
                 "certs": certs, "bcast": adv.improved, "models": self.worker.export_models(adv.wstate),
             })
-            ring = _snap_ring(state.ring, g["models"], slot, g["bcast"])
-        inflight, *pushed = self._push_broadcast(adv.inflight, g["certs"], g["bcast"], adv, r)
+            ring = _snap_ring(state.ring, g["models"], slot, g["bcast"], base)
+        certs_all, bcast_all = g["certs"], g["bcast"]
+        if self._n_pods > 1:
+            # the pod's (W_pod,) control plane at its block of (W,)
+            certs_all = torch.full((w,), float("inf"), dtype=torch.float32, device=self.device)
+            certs_all[base : base + self._w_pod] = g["certs"]
+            bcast_all = torch.zeros((w,), dtype=torch.bool, device=self.device)
+            bcast_all[base : base + self._w_pod] = g["bcast"]
+        inflight, *pushed = self._push_broadcast(adv.inflight, certs_all, bcast_all, adv, r)
         return inflight, ring, pushed
+
+    # ----- tier 2: the cross-pod flush (ref engine_sharded.py:752-927) ----
+    def _flush(self, r: int, adv: _Advanced, inflight, ring, xpend):
+        """Each rank's top-``cross_pod_top_k`` pending candidates,
+        gathered over the whole mesh in pod-major order (a rank with none
+        pending sends padding, id W); their payloads into the ring, their
+        certificates pushed to this rank's rows from cross-pod sources
+        only. Returns ``(inflight, ring, xpend, counters)``, the pending
+        mask cleared where a candidate left."""
+        cfg, w, certs = self.config, self.config.n_workers, adv.certs
+        kx = min(int(cfg.cross_pod_top_k), self._w_local)
+        rows, valid = self._top_k_candidates(xpend, certs, kx)
+        g = all_gather_tree(self._mesh, {
+            "certs": certs[rows], "ids": torch.where(valid, self._rows.ids[rows], _i32(w, certs)),
+            "models": export_payload_rows(self.worker, adv.wstate, rows),
+        })
+        ok = g["ids"] < w
+        ring = _scatter_ring(ring, g["models"], r % self._depth, g["ids"][ok].long(), ok)
+        flushed = torch.zeros(xpend.shape, dtype=torch.bool, device=self.device)
+        flushed[rows] = valid
+        # only sources of another pod: same-pod destinations heard tier 1
+        cross = ok & (torch.clamp(g["ids"], 0, w - 1) // self._w_pod != self._mesh.pod)
+        if self._control_sparse:
+            inflight, *pushed = self._push_candidates(
+                inflight, torch.where(cross, g["certs"], _inf(certs)),
+                torch.where(cross, g["ids"], _i32(w, certs)), adv, r,
+            )
+        else:
+            ids = g["ids"][cross].long()
+            xcerts = torch.full((w,), float("inf"), dtype=torch.float32, device=self.device)
+            xcerts[ids] = g["certs"][cross]
+            xbcast = torch.zeros((w,), dtype=torch.bool, device=self.device)
+            xbcast[ids] = True
+            inflight, *pushed = self._push_broadcast(inflight, xcerts, xbcast, adv, r)
+        return inflight, ring, xpend & ~flushed, pushed
 
 
 def _scatter_ring(ring, models, slot: int, gids: torch.Tensor, src):

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 #: C entry points and their argument types (every pointer and the
 #: stream as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "edge_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
+    "edge_scan_launch": [_P] * 8 + [_I] * 8 + [_P],
     "round_step_launch": [_P] * 8 + [_I, _F] + [_P] * 8 + [_I] * 5 + [_P],
     "queue_ingest_launch": [_P] * 12 + [_I] * 5 + [_P],
     "weight_update_launch": [_P] * 8 + [_I] * 4 + [_P],

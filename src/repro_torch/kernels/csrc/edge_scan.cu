@@ -14,10 +14,14 @@
 // xb once, coalesced, with enough bytes in flight to cover HBM latency.
 //
 // Design:
-//   * one launch; the work unit is (row tile, worker), grid (tiles, W). The
-//     wrapper (kernels/ops.py::edge_scan_plan) sizes the tiles from W, n and
-//     the SM count so that small W (W = 10 or 1 at n = 2048) fills the card
-//     too;
+//   * one launch; the work unit is (row tile, worker). The wrapper
+//     (kernels/ops.py::edge_scan_plan) sizes the tiles from n and the SM
+//     count so that a lone worker fills the card too, and never from W: a
+//     worker's sums are the same bits in any batch of workers (a rank of
+//     the sharded engine scans W_local of them, one device W). W sets only
+//     how many tiles a block takes: one (grid (tiles, W)) while the blocks
+//     are few, a whole group of tiles folded in tile order (grid (groups,
+//     W), no first-level ticket) once W x groups blocks fill the SMs;
 //   * a block of 256 threads is laid out (row lanes x feature groups). With
 //     VEC = 4 each thread loads an int4, four neighbouring features of one
 //     row; 16 threads cover a row of d = 64, so a warp reads two whole rows
@@ -37,15 +41,16 @@
 //   * no float atomics: a block sums its row lanes in a fixed order through
 //     shared memory (threads over feature groups, so that the reads do not
 //     pile onto one bank) and its scalars by a fixed-shape shuffle tree. With one
-//     tile per worker it writes the result; else it writes its tile's
+//     tile per worker it writes the result; a block that folds a group adds
+//     each tile's sums to the group's in tile order; else it writes its tile's
 //     partial to scratch, and a ticket (an integer atomicAdd after
 //     __threadfence) finds the last block of its group of tiles, which sums
 //     the group's partials in tile order, 32 loads in flight per thread. Many
 //     tiles take a second level the same way: the last group sums the groups
 //     in order. The last block resets its counter, so the zeroed counters are
 //     reused by the next launch. The result is bitwise the same on every
-//     launch with the same inputs and plan, which the engine's "sparse ==
-//     dense" bit-exactness check on the card relies on. (Thread-block
+//     launch with the same inputs, which the engine's "sparse == dense"
+//     bit-exactness check on the card relies on. (Thread-block
 //     clusters summing through distributed shared memory measured slower
 //     here: their barriers cost more than the ticket.)
 #include <cuda_runtime.h>
@@ -180,41 +185,17 @@ struct Batch {
   }
 };
 
+// One row tile [row0, row1) of one worker: its histogram and scalars,
+// folded into out_h / out_s (scalar k at out_s[k * s_stride]). The first
+// tile a block scans starts its sums from 0, as sum_partials does, so a
+// block that folds a group of tiles in tile order gets the bits that
+// per-tile blocks and the ticket get.
 template <int VEC, bool PIPED>
-__global__ void __launch_bounds__(kThreads)
-    edge_scan_kernel(const int* __restrict__ xb, const float* __restrict__ wy,
-                     const float* __restrict__ w, int W, int n, int d, int B, int tile_rows,
-                     int group, float* __restrict__ part1, float* __restrict__ part2,
-                     int* __restrict__ counters, float* __restrict__ hist,
-                     float* __restrict__ scal) {
-  // VEC * B * kThreads floats: thread t's sum of feature slot v, bin b at
-  // hs[(v * B + b) * kThreads + t], so the 32 lanes of a warp always hit 32
-  // different banks
-  extern __shared__ float hs[];
-  __shared__ float warp_sums[3][kWarps];
-  __shared__ int flag;
-  const int tile = blockIdx.x;
-  const int tiles = gridDim.x;
-  const int wk = blockIdx.y;
+__device__ __forceinline__ void scan_tile(const int* xbw, const float* wyw, const float* ww,
+                                          int row0, int row1, int d, int B, bool first,
+                                          float* hs, float (*warp_sums)[kWarps], float* out_h,
+                                          float* out_s, int s_stride) {
   const int tid = threadIdx.x;
-  const int row0 = tile * tile_rows;
-  const int row1 = min(row0 + tile_rows, n);
-  const int hc = d * B;
-  const int cells = hc + 3;
-  const int* xbw = xb + (size_t)wk * n * d;
-  const float* wyw = wy + (size_t)wk * n;
-  const float* ww = w + (size_t)wk * n;
-
-  // where this block's sums go: the result (one tile) or its tile's partial
-  float* out_h = hist + (size_t)wk * hc;
-  float* out_s = scal + wk;
-  int s_stride = W;
-  if (tiles > 1) {
-    out_h = part1 + ((size_t)wk * tiles + tile) * cells;
-    out_s = out_h + hc;
-    s_stride = 1;
-  }
-
   const int Q = (d + VEC - 1) / VEC;  // feature groups per row
   const int FQ = min(Q, kThreads);    // groups per pass over the tile
   const int R = kThreads / FQ;        // row lanes
@@ -255,7 +236,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     // row lanes are summed in lane order. Neighbouring threads take
     // neighbouring feature groups of one (slot, bin), so a warp's reads
-    // spread over the banks (with (feature, bin) neighbours they all hit one)
+    // spread over the banks (with (feature, bin) neighbours they all hit one).
+    // A cell is always folded by the same thread, which reads back its own
+    // store of the tile before
     const int pass_cells = FQ * slots;
     for (int c = tid; c < pass_cells; c += kThreads) {
       const int fql = c % FQ;
@@ -265,13 +248,14 @@ __global__ void __launch_bounds__(kThreads)
         const float* r = hs + vb * kThreads + fql;
         float s = 0.f;
         for (int k = 0; k < R; ++k) s += r[k * FQ];
-        out_h[j * B + vb % B] = s;
+        float* o = out_h + j * B + vb % B;
+        *o = (first ? 0.f : *o) + s;
       }
     }
     __syncthreads();
   }
 
-  // the block's scalars: a fixed-shape shuffle tree per warp, then warps in order
+  // the tile's scalars: a fixed-shape shuffle tree per warp, then warps in order
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
 #pragma unroll
@@ -282,23 +266,69 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < 3) {
     float s = 0.f;
     for (int k = 0; k < kWarps; ++k) s += warp_sums[tid][k];
-    out_s[(size_t)tid * s_stride] = s;
+    float* o = out_s + (size_t)tid * s_stride;
+    *o = (first ? 0.f : *o) + s;
+  }
+}
+
+// Grid (ceil(tiles / fold), W): a block scans tiles [x * fold, x * fold + fold)
+// of worker y. fold is 1 (one tile a block, summed across blocks by the
+// ticket) or group (a block folds a whole group of tiles in tile order, with
+// no first-level ticket); both give the same bits.
+template <int VEC, bool PIPED>
+__global__ void __launch_bounds__(kThreads)
+    edge_scan_kernel(const int* __restrict__ xb, const float* __restrict__ wy,
+                     const float* __restrict__ w, int W, int n, int d, int B, int tile_rows,
+                     int tiles, int group, int fold, float* __restrict__ part1,
+                     float* __restrict__ part2, int* __restrict__ counters,
+                     float* __restrict__ hist, float* __restrict__ scal) {
+  // VEC * B * kThreads floats: thread t's sum of feature slot v, bin b at
+  // hs[(v * B + b) * kThreads + t], so the 32 lanes of a warp always hit 32
+  // different banks
+  extern __shared__ float hs[];
+  __shared__ float warp_sums[3][kWarps];
+  __shared__ int flag;
+  const int tile0 = blockIdx.x * fold;
+  const int wk = blockIdx.y;
+  const int hc = d * B;
+  const int cells = hc + 3;
+  const int groups = (tiles + group - 1) / group;
+  const int g = tile0 / group;
+
+  // where this block's sums go: the result (one tile, or the fold of a
+  // worker's only group), its tile's partial, or its group's sum
+  float* out_h = hist + (size_t)wk * hc;
+  float* out_s = scal + wk;
+  int s_stride = W;
+  if (tiles > 1 && (fold == 1 || groups > 1)) {
+    out_h = fold == 1 ? part1 + ((size_t)wk * tiles + tile0) * cells
+                      : part2 + ((size_t)wk * groups + g) * cells;
+    out_s = out_h + hc;
+    s_stride = 1;
+  }
+  const int tile1 = min(tile0 + fold, tiles);
+  for (int tile = tile0; tile < tile1; ++tile) {
+    scan_tile<VEC, PIPED>(xb + (size_t)wk * n * d, wy + (size_t)wk * n, w + (size_t)wk * n,
+                          tile * tile_rows, min((tile + 1) * tile_rows, n), d, B, tile == tile0,
+                          hs, warp_sums, out_h, out_s, s_stride);
   }
   if (tiles == 1) return;
 
   // cross-tile sums, in tile order, by the last block to arrive
-  const int groups = (tiles + group - 1) / group;
-  const int g = tile / group;
-  const int members = min(group, tiles - g * group);
   int* cnt = counters + (size_t)wk * (groups + 1);
-  if (!last_to_arrive(cnt + g, members, &flag)) return;
-  const float* src1 = part1 + ((size_t)wk * tiles + (size_t)g * group) * cells;
-  if (groups == 1) {
-    sum_partials(src1, members, cells, hc, hist + (size_t)wk * hc, scal + wk, W);
-    return;
+  if (fold == 1) {
+    const int members = min(group, tiles - g * group);
+    if (!last_to_arrive(cnt + g, members, &flag)) return;
+    const float* src1 = part1 + ((size_t)wk * tiles + (size_t)g * group) * cells;
+    if (groups == 1) {
+      sum_partials(src1, members, cells, hc, hist + (size_t)wk * hc, scal + wk, W);
+      return;
+    }
+    float* mid = part2 + ((size_t)wk * groups + g) * cells;
+    sum_partials(src1, members, cells, hc, mid, mid + hc, 1);
+  } else if (groups == 1) {
+    return;  // the block folded all of the worker's tiles into the result
   }
-  float* mid = part2 + ((size_t)wk * groups + g) * cells;
-  sum_partials(src1, members, cells, hc, mid, mid + hc, 1);
   if (!last_to_arrive(cnt + groups, groups, &flag)) return;
   sum_partials(part2 + (size_t)wk * groups * cells, groups, cells, hc, hist + (size_t)wk * hc,
                scal + wk, W);
@@ -308,16 +338,17 @@ __global__ void __launch_bounds__(kThreads)
 
 // xb (W, n, d) int32, wy/w (W, n) f32 -> hist (W, d, B) f32, scal (3, W) f32.
 // Plan (kernels/ops.py::edge_scan_plan): tiles = ceil(n / tile_rows) >= 1
-// row tiles per worker, in groups of `group` tiles. With tiles > 1 the
-// scratch is part1 (W, tiles, d*B + 3) and part2 (W, ceil(tiles / group),
-// d*B + 3) f32 and counters (W, ceil(tiles / group) + 1) int32, zero on
-// entry and zero again on exit. Requires 1 <= B <= 32, W >= 1.
+// row tiles per worker, in groups of `group` tiles, `fold` (1 or group) tiles
+// a block. With tiles > 1 the scratch is part1 (W, tiles, d*B + 3) (fold 1
+// only) and part2 (W, ceil(tiles / group), d*B + 3) f32 and counters
+// (W, ceil(tiles / group) + 1) int32, zero on entry and zero again on exit.
+// Requires 1 <= B <= 32, W >= 1.
 extern "C" int edge_scan_launch(const int* xb, const float* wy, const float* w, float* part1,
                                 float* part2, int* counters, float* hist, float* scal, int W,
                                 int n, int d, int B, int tile_rows, int tiles, int group,
-                                void* stream_ptr) {
+                                int fold, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid(tiles, W);
+  const dim3 grid((tiles + fold - 1) / fold, W);
   const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0 && B <= 8;
   const int vec = vec4 ? 4 : 1;
   const size_t smem = (size_t)vec * B * kThreads * sizeof(float);
@@ -326,10 +357,10 @@ extern "C" int edge_scan_launch(const int* xb, const float* wy, const float* w, 
   const int groups_per_row = (d + vec - 1) / vec;
   const int lanes = kThreads / (groups_per_row < kThreads ? groups_per_row : kThreads);
   const bool piped = (tile_rows + lanes - 1) / lanes > 2 * kRowsPiped;
-#define EDGE_SCAN_LAUNCH(V, P)                                                               \
-  edge_scan_kernel<V, P><<<grid, kThreads, smem, stream>>>(xb, wy, w, W, n, d, B, tile_rows, \
-                                                           group, part1, part2, counters,    \
-                                                           hist, scal)
+#define EDGE_SCAN_LAUNCH(V, P)                                                                   \
+  edge_scan_kernel<V, P><<<grid, kThreads, smem, stream>>>(xb, wy, w, W, n, d, B, tile_rows,     \
+                                                           tiles, group, fold, part1, part2,     \
+                                                           counters, hist, scal)
   if (vec4) {
     if (piped) EDGE_SCAN_LAUNCH(4, true); else EDGE_SCAN_LAUNCH(4, false);
   } else {

@@ -91,19 +91,27 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def edge_scan_plan(nw: int, n: int, sms: int) -> tuple[int, int, int]:
-    """K1's work split: ``(tile_rows, tiles, group)``. Each of the ``nw``
-    workers' ``n`` rows is cut into ``tiles`` row tiles of ``tile_rows``
-    rows (the last may be shorter), about ``EDGE_SCAN_BLOCKS_PER_SM``
-    blocks per SM in all; the last block of each ``group`` of tiles sums
-    that group's partials, and with more than one group the last group
-    sums the groups. ``tiles == 1`` needs no scratch."""
-    want = max(1, EDGE_SCAN_BLOCKS_PER_SM * sms // max(nw, 1))
+def edge_scan_plan(nw: int, n: int, sms: int) -> tuple[int, int, int, int]:
+    """K1's work split for ``nw`` workers of ``n`` rows: ``(tile_rows,
+    tiles, group, fold)``. A worker's rows are cut into ``tiles`` row tiles
+    of ``tile_rows`` rows (the last may be shorter), enough for about
+    ``EDGE_SCAN_BLOCKS_PER_SM`` blocks per SM with a lone worker; the
+    tiles' sums are added in tile order within each ``group`` of tiles,
+    and with more than one group the groups' sums in group order. That
+    split never depends on ``nw``, so a worker's sums are the same bits
+    whichever batch it is scanned in (the sharded engine's ranks scan
+    W_local workers, one device all W). ``nw`` sets only ``fold``, the
+    tiles a block takes: 1 (a block a tile, summed across blocks by a
+    ticket) until ``nw`` blocks a group fill the SMs, then the whole
+    group, folded in tile order by one block with no first-level ticket.
+    ``tiles == 1`` needs no scratch."""
+    want = max(1, EDGE_SCAN_BLOCKS_PER_SM * sms)
     tiles = max(1, min(want, -(-n // EDGE_SCAN_MIN_TILE_ROWS)))
     tile_rows = max(1, -(-n // tiles))
     tiles = max(1, -(-n // tile_rows))
     group = tiles if tiles <= EDGE_SCAN_ONE_LEVEL_TILES else math.isqrt(tiles - 1) + 1
-    return tile_rows, tiles, group
+    fold = group if nw * -(-tiles // group) >= sms else 1
+    return tile_rows, tiles, group, fold
 
 
 #: K1's scratch per (device, stream): partial sums and zeroed ticket counters,
@@ -178,16 +186,16 @@ def edge_scan(
     from repro_torch.kernels.build import load_library
 
     lib = load_library()
-    tile_rows, tiles, group = edge_scan_plan(nw, n, _sm_count(dev))
+    tile_rows, tiles, group, fold = edge_scan_plan(nw, n, _sm_count(dev))
     groups = -(-tiles // group)
     cells = d * num_bins + 3
     stream = _stream(dev)
-    part1_n = nw * tiles * cells if tiles > 1 else 0
+    part1_n = nw * tiles * cells if tiles > 1 and fold == 1 else 0
     part2_n = nw * groups * cells if groups > 1 else 0
     part, cnt = _edge_scan_scratch(dev, stream, part1_n + part2_n, nw * (groups + 1))
     err = lib.edge_scan_launch(
         _ptr(xb), _ptr(wy), _ptr(w), _ptr(part), _ptr(part) + 4 * part1_n, _ptr(cnt), _ptr(hist),
-        _ptr(scal), nw, n, d, num_bins, tile_rows, tiles, group, stream,
+        _ptr(scal), nw, n, d, num_bins, tile_rows, tiles, group, fold, stream,
     )
     _raise_on("edge_scan", err)
     LAUNCHES["edge_scan"] += 1

@@ -1,10 +1,14 @@
 """Worker mesh for the sharded TMSN engine, on ``torch.distributed``;
-counterpart of ``make_worker_mesh`` and ``ici_round_seconds`` in
-``src/repro/launch/mesh.py``.
+counterpart of ``make_worker_mesh``, ``ici_round_seconds`` and
+``dcn_round_seconds`` in ``src/repro/launch/mesh.py``.
 
 One process (rank) per shard. A :class:`WorkerMesh` names the rank, the
-world, the rank's device and the process group; the collectives below
-are the ones the engine issues, each a copy of bytes (never a summing
+world, the rank's device and the process group: a 1-D ``("workers",)``
+mesh, or a two-tier ``("pod", "workers")`` mesh whose ``intra`` is the
+mesh of the rank's own pod (a process subgroup; ``pod`` is the
+slow axis, so rank ``i`` sits in pod ``i // (n / pods)``). The
+collectives below are the ones the engine issues, over whichever of the
+two meshes they are given, each a copy of bytes (never a summing
 reduction of floats, so ``-0.0`` and every NaN payload survive):
 
   * :func:`all_gather_tree` — a pytree of tensors whose leaves lead with
@@ -45,30 +49,52 @@ from repro_torch.device import resolve_device
 #: aggregate): NVIDIA's published figure, not measured here
 NVLINK_BYTES_PER_S = 450e9
 
-#: what a (pod, workers) mesh raises until ROADMAP.md queue 1 item 10b lands
-POD_DEFERRED = "a (pod, workers) mesh is not ported yet: ROADMAP.md queue 1 item 10b"
+#: the network between H100 nodes: one NVIDIA ConnectX-7 port at
+#: 400 Gb/s (the InfiniBand NDR adapter of a DGX H100 node, one per GPU),
+#: NVIDIA's published figure, not measured here
+DCN_BYTES_PER_S = 50e9
 
 
 @dataclasses.dataclass(eq=False)
 class WorkerMesh:
-    """A 1-D ``("workers",)`` mesh of ``size`` ranks, one shard each, as
-    seen from ``rank``. ``collective_seconds`` and ``collectives`` count
-    the host time and the number of calls spent in this module's
-    collectives on the mesh."""
+    """A mesh of ``size`` ranks, one shard each, as seen from ``rank``:
+    1-D ``("workers",)`` when ``pods == 1``, else ``("pod", "workers")``
+    with ``size / pods`` ranks a pod. ``group`` is the world's process
+    group (the cross-pod tier's); ``intra`` is the 1-D mesh of this
+    rank's pod over the pod's subgroup, rank numbered within the pod (the
+    intra-pod tier's; the mesh itself with one pod).
+    ``collective_seconds`` and ``collectives`` count the host time and
+    the number of calls spent in this module's collectives on this mesh,
+    not on ``intra``, which keeps its own."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
     group: Any = None
+    pods: int = 1
     collective_seconds: float = 0.0
     collectives: int = 0
+    intra: Any = None
 
-    axis_names: tuple = ("workers",)
+    def __post_init__(self) -> None:
+        if self.intra is None:
+            self.intra = self
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("workers",) if self.pods == 1 else ("pod", "workers")
 
     @property
     def shape(self) -> dict:
-        return {"workers": self.size}
+        if self.pods == 1:
+            return {"workers": self.size}
+        return {"pod": self.pods, "workers": self.size // self.pods}
+
+    @property
+    def pod(self) -> int:
+        """The pod this rank sits in (0 with one pod)."""
+        return self.rank // (self.size // self.pods)
 
     @property
     def host_staged(self) -> bool:
@@ -99,7 +125,10 @@ def make_worker_mesh(
     device: str | torch.device = "cuda",
     backend: str | None = None,
 ) -> WorkerMesh:
-    """The 1-D ``("workers",)`` mesh of this ``torch.distributed`` world.
+    """The worker mesh of this ``torch.distributed`` world: 1-D
+    ``("workers",)`` with ``pods=1``, two-tier ``("pod", "workers")``
+    with ``pods > 1`` (``pods`` pods of ``num_devices / pods`` ranks,
+    ``pod`` the slow axis, so the flat rank order is the 1-D mesh's).
 
     Needs an initialized world of exactly ``num_devices`` ranks (the
     world's size when None). ``device`` is this rank's device: the card
@@ -108,8 +137,11 @@ def make_worker_mesh(
     ``cuda:<rank>``); ``"cpu"`` runs the plain path. ``backend``, when
     given, must be the world's, and the world's must be the one
     :func:`backend_for` gives for the ranks' devices (one collective, at
-    construction, gathers them). ``pods > 1`` raises: the two-tier mesh
-    is ROADMAP.md queue 1 item 10b."""
+    construction, gathers them). A pod mesh makes one process subgroup a
+    pod with ``dist.new_group``: every rank of the world must call this
+    function with the same ``pods``, since every rank creates every
+    pod's group, in pod order. It may be called again in the same world,
+    for example for a flat and a pod mesh over the same ranks."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "make_worker_mesh needs an initialized torch.distributed world "
@@ -124,8 +156,8 @@ def make_worker_mesh(
         raise ValueError(f"num_devices={num_devices} must be the world size {world}: one rank per shard")
     if pods < 1:
         raise ValueError(f"pods={pods} must be >= 1")
-    if pods > 1:
-        raise NotImplementedError(POD_DEFERRED)
+    if num_devices % pods:
+        raise ValueError(f"num_devices={num_devices} must divide into {pods} pods")
     rank = dist.get_rank()
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -149,7 +181,16 @@ def make_worker_mesh(
             f"ranks on {devices} need the {need!r} backend, the world has {world_backend!r} "
             "(nccl needs a card per rank; the CPU and shared cards need gloo)"
         )
-    return WorkerMesh(rank=rank, size=world, device=dev, backend=world_backend, group=dist.group.WORLD)
+    intra = None
+    if pods > 1:
+        wpp = world // pods
+        # new_group is a collective of the whole world: every rank makes
+        # every pod's group, in the same order, and keeps its own
+        groups = [dist.new_group(list(range(p * wpp, (p + 1) * wpp))) for p in range(pods)]
+        intra = WorkerMesh(rank=rank % wpp, size=wpp, device=dev, backend=world_backend,
+                           group=groups[rank // wpp])
+    return WorkerMesh(rank=rank, size=world, device=dev, backend=world_backend, group=dist.group.WORLD,
+                      pods=pods, intra=intra)
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +312,26 @@ def ici_round_seconds(
     return float(gossip_bytes_per_round + control_bytes_per_round) / float(bandwidth)
 
 
+def dcn_round_seconds(
+    dcn_bytes_per_round: int,
+    bandwidth: float = DCN_BYTES_PER_S,
+    control_bytes_per_round: int = 0,
+) -> float:
+    """Lower-bound wire seconds per round on the cross-pod tier, from the
+    pod-mesh engine's amortized ``gossip_bytes_per_round_dcn`` (plus,
+    optionally, a separately reported control-plane share): the formula
+    of :func:`ici_round_seconds` at the inter-node rate
+    (:data:`DCN_BYTES_PER_S`, published). A derived estimate, not a
+    measurement."""
+    return ici_round_seconds(dcn_bytes_per_round, bandwidth, control_bytes_per_round=control_bytes_per_round)
+
+
 # ---------------------------------------------------------------------------
 # launcher
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(rank: int, fn: Callable, devices: list, backend: str, workdir: str, args) -> None:
+def _rank_main(rank: int, fn: Callable, devices: list, backend: str, workdir: str, args, pods: int) -> None:
     # one intra-op thread a rank: the ranks share the host's cores, and a
     # CPU rank then reduces in the order of a one-thread run
     torch.set_num_threads(1)
@@ -284,7 +339,7 @@ def _rank_main(rank: int, fn: Callable, devices: list, backend: str, workdir: st
         backend, init_method=f"file://{os.path.join(workdir, 'init')}", rank=rank, world_size=len(devices)
     )
     try:
-        mesh = make_worker_mesh(len(devices), device=devices[rank], backend=backend)
+        mesh = make_worker_mesh(len(devices), pods, device=devices[rank], backend=backend)
         out = fn(mesh, *args)
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -297,10 +352,12 @@ def spawn_world(
     devices: list,
     workdir: str | os.PathLike,
     args: tuple = (),
+    pods: int = 1,
 ) -> list:
     """Run ``fn(mesh, *args)`` on ``len(devices)`` ranks, rank ``i`` on
     ``devices[i]`` (the same card named twice means two ranks share it),
-    and return each rank's (picklable) result in rank order.
+    and return each rank's (picklable) result in rank order. ``mesh`` is
+    :func:`make_worker_mesh`'s with ``pods`` pods.
 
     ``fn`` must be importable by the spawned children (a module-level
     function). ``workdir`` must be empty or new: it holds the file store
@@ -322,7 +379,7 @@ def spawn_world(
         from repro_torch.kernels.build import build
 
         build()
-    mp.spawn(_rank_main, args=(fn, devices, backend, str(work), args), nprocs=len(devices), join=True)
+    mp.spawn(_rank_main, args=(fn, devices, backend, str(work), args, pods), nprocs=len(devices), join=True)
     out = []
     for r in range(len(devices)):
         with open(work / f"rank{r}.pkl", "rb") as f:
@@ -331,14 +388,15 @@ def spawn_world(
 
 
 __all__ = [
+    "DCN_BYTES_PER_S",
     "NVLINK_BYTES_PER_S",
-    "POD_DEFERRED",
     "WorkerMesh",
     "all_gather_object",
     "all_gather_tree",
     "all_reduce",
     "backend_for",
     "broadcast_tree",
+    "dcn_round_seconds",
     "ici_round_seconds",
     "make_worker_mesh",
     "spawn_world",

@@ -17,6 +17,10 @@ held against the JAX reference engine (``tests/test_chaos.py``,
     the reference's draws injected, to 1e-5.
   * The two fault properties of tests/test_properties.py, with
     strategy bounds float32 can represent, on the port and the reference.
+  * The ``pod-mesh`` substrate of tests/test_chaos.py (the dense buffer
+    on a world of 4 CPU ranks in 2 pods): the same exact claims, the
+    partition window dropping cross-pod traffic, and a W = 16 partition
+    run against the reference pod engine's figures.
 
 Every config pins its env knobs (``fault_spec=""`` included).
 """
@@ -44,6 +48,7 @@ from test_torch_engine import (  # noqa: E402
     _assert_close_runs,
     _sparrow_pair,
 )
+from test_torch_sharded_reference import CHAOS_DEC, CHAOS_PERIOD, POD_FIGURES  # noqa: E402
 
 CPU = "cpu"
 #: the substrates of tests/test_chaos.py that need no mesh, plus sparse
@@ -312,9 +317,11 @@ def test_validation_errors_match_reference(name):
 
 def test_only_a_mesh_is_deferred():
     """Every item-9 feature is accepted; an inactive plan is the clean
-    run. Of the meshes only the two-tier (pod, workers) one is still
-    deferred (ROADMAP item 10b); a mesh with no ``workers`` axis raises
-    the reference's ValueError, text for text."""
+    run. No mesh is deferred any more: ``TMSNEngine`` takes a config with
+    a (pod, workers) mesh as the reference's does (the pod-mesh substrate
+    runs below, on a world of ranks); ``make_engine`` needs a real
+    ``WorkerMesh`` for it; a mesh with no ``workers`` axis raises the
+    reference's ValueError, text for text."""
     for kw in (dict(inflight_capacity="auto"), dict(spare_slots=1), dict(membership=teng.MembershipPlan()),
                dict(fault_spec="drop=5,seed=1"), dict(fault_plan=teng.FaultPlan(drop_prob=0.1)),
                dict(publish_every_k=3)):
@@ -322,11 +329,11 @@ def test_only_a_mesh_is_deferred():
     assert _engine(teng, fault_plan=teng.FaultPlan(seed=4))._fault is None
 
     class PodMesh:
-        size, axis_names = 4, ("pod", "workers")
+        size, axis_names, shape = 4, ("pod", "workers"), {"pod": 2, "workers": 2}
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
-        _engine(teng, mesh=PodMesh())
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+    assert type(_engine(jeng, mesh=PodMesh())) is jeng.TMSNEngine
+    assert type(_engine(teng, mesh=PodMesh())) is teng.TMSNEngine
+    with pytest.raises(ValueError, match="needs a repro_torch.launch.mesh.WorkerMesh, got PodMesh"):
         teng.make_engine(TorchToyWorker(PERIOD, DEC), _config(teng, mesh=PodMesh()), CPU)
 
     class DataMesh:
@@ -648,3 +655,89 @@ def test_soundness_gate_never_suppresses_legitimate_improvement():
         assert faulted.messages_evicted == 0
 
     prop()
+
+
+# ---------------------------------------------------------------------------
+# the pod-mesh substrate (tests/test_chaos.py:77) on a world of 4 CPU ranks
+# ---------------------------------------------------------------------------
+
+#: the dense-substrate scenarios the pod-mesh substrate runs
+POD_KINDS = ("plain", "join_k1", "drop", "dup", "corrupt")
+POD_W16 = 16
+#: the reference pod engine's figures for a [4, 12) partition at W = 16,
+#: 30 rounds (tests/test_torch_sharded_reference.py holds the run against
+#: the live reference): history entries, sent, sent_dcn, accepted, dropped
+POD_PARTITION_W16 = (457, 708, 344, 399, 96)
+#: the reference pod engine's (dropped, sent) for the drop scenario at
+#: W = 8 on 4 devices in 2 pods, which tests/test_torch_sharded_reference.py
+#: computes live (``pod_drop_w8``) and holds the port's run against
+POD_DROP_W8 = (POD_FIGURES["pod_drop_w8"][6], POD_FIGURES["pod_drop_w8"][1])
+
+
+@pytest.fixture(scope="module")
+def pod_runs(tmp_path_factory):
+    from repro_torch.launch.mesh import spawn_world
+    from test_torch_sharded_engine import run_on_mesh
+
+    runs = {f"{kind}-pod": (PERIOD, DEC, _config(teng, **SCENARIOS[f"{kind}-dense"](teng)))
+            for kind in POD_KINDS}
+    runs["partition-pod"] = (PERIOD, DEC, _config(teng, **SCENARIOS["partition"](teng)))
+    runs["partition-w16"] = ([1, 2] * (POD_W16 // 2), [0.01 * (i + 1) for i in range(POD_W16)], _config(
+        teng, n_workers=POD_W16, max_rounds=30, rounds_per_dispatch=1,
+        fault_plan=teng.FaultPlan(partition_start=4, partition_stop=12, seed=1)))
+    res = spawn_world(run_on_mesh, [CPU] * 4, tmp_path_factory.mktemp("pod_world"), args=(runs,), pods=2)
+    for r in res[1:]:
+        for name in runs:
+            _assert_same(r[name], res[0][name], name)
+    return res[0]
+
+
+def _same_run(a, b, tag):
+    assert (a.final_certificates, a.history, a.rounds) == (b.final_certificates, b.history, b.rounds), tag
+
+
+class TestPodMeshSubstrate:
+    """tests/test_chaos.py's exact claims on its ``pod-mesh`` substrate."""
+
+    def test_clean_pod_run_is_the_single_device_run(self, pod_runs, runs):
+        _same_run(pod_runs["plain-pod"], runs(teng, "plain-dense"), "pod-mesh")
+        assert pod_runs["plain-pod"].messages_sent_dcn > 0
+
+    def test_join_at_round_one_is_masked_from_start(self, pod_runs):
+        _same_run(pod_runs["join_k1-pod"], pod_runs["plain-pod"], "pod-mesh join")
+        assert pod_runs["join_k1-pod"].workers_joined == 0
+
+    def test_dense_buffer_absorbs_duplicates(self, pod_runs):
+        _same_run(pod_runs["dup-pod"], pod_runs["plain-pod"], "pod-mesh dup")
+
+    def test_corruption_rejected_and_never_poisons(self, pod_runs, runs):
+        cor = pod_runs["corrupt-pod"]
+        assert cor.messages_corrupt_rejected > 0
+        _monotone_finite(cor)
+        assert min(cor.final_certificates) == min(pod_runs["plain-pod"].final_certificates)
+        assert cor.final_certificates == runs(teng, "corrupt-dense").final_certificates
+
+    def test_drop_same_as_every_substrate(self, pod_runs, runs):
+        """Certificates and history of the single-device drop run. The
+        drop count equals the single device's only where a rank holds
+        one worker (the reference's 8-device CI mesh); here a rank holds
+        two and flushes one a round across pods, so fewer cross-pod
+        pushes meet the hash: 88 dropped of 297 sent, against 90 of 301,
+        as the reference's pod engine gives on 4 devices in 2 pods."""
+        assert (CHAOS_PERIOD, CHAOS_DEC) == (PERIOD, DEC)  # the live reference run's toy is this one
+        drop, oracle = pod_runs["drop-pod"], runs(teng, "drop-dense")
+        _same_run(drop, oracle, "pod-mesh drop")
+        assert (oracle.messages_dropped_injected, oracle.messages_sent) == (90, 301)
+        assert (drop.messages_dropped_injected, drop.messages_sent) == POD_DROP_W8
+
+    def test_partition_drops_cross_pod_traffic(self, pod_runs):
+        res = pod_runs["partition-pod"]
+        assert res.messages_dropped_injected > 0
+        assert res.rounds == ROUNDS
+        _monotone_finite(res)
+
+    def test_partition_matches_the_reference_figures(self, pod_runs):
+        res = pod_runs["partition-w16"]
+        assert (len(res.history), res.messages_sent, res.messages_sent_dcn, res.messages_accepted,
+                res.messages_dropped_injected) == POD_PARTITION_W16
+        _monotone_finite(res)

@@ -137,6 +137,23 @@ def test_cuda_edge_scan(cuda_device, w, n, d, num_bins):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w,n", [(20, 2048), (256, 2048), (4, 20_000), (16, 20_000)])
+def test_cuda_edge_scan_worker_sums_independent_of_w(cuda_device, w, n):
+    """A worker's histogram and sums are the same bits in a launch over W
+    workers and in one over a slice of them (the sharded engine's ranks
+    scan W_local workers where one device scans W). At W = 256 (n = 2048)
+    and W = 16 (n = 20 000, two levels) the whole batch folds each group
+    of tiles in one block, and the slices run a block a tile."""
+    xb, wy, w_ = _cuda(_scan_inputs(w, w, n, 64, 8), cuda_device)
+    whole = tops.edge_scan(xb, wy, w_, num_bins=8)
+    for lo, hi in ((0, 1), (1, w // 4 + 1), (w // 2, w)):
+        part = tops.edge_scan(xb[lo:hi].contiguous(), wy[lo:hi].contiguous(), w_[lo:hi].contiguous(),
+                              num_bins=8)
+        for a, b in zip(whole, part):
+            assert torch.equal(a[lo:hi], b), (lo, hi)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,num_bins", [(64, 8), (33, 5), (4, 32)])
 def test_cuda_edge_scan_bins_outside_range(cuda_device, d, num_bins):
     """Bins below 0 and at or above B add nothing, as in the plain version."""
@@ -542,7 +559,7 @@ def _sharded_toy_rank(mesh, kw):
     tops.reset_launches()
     res = make_engine(worker, EngineConfig(**cfg)).run()
     fields = ("final_certificates", "history", "rounds", "messages_sent", "messages_accepted",
-              "messages_discarded", "messages_evicted", "inflight_occupancy_peak")
+              "messages_discarded", "messages_evicted", "inflight_occupancy_peak", "messages_sent_dcn")
     return {f: getattr(res, f) for f in fields} | {"launches": dict(tops.LAUNCHES),
                                                    "host_staged": mesh.host_staged}
 
@@ -565,3 +582,24 @@ def test_cuda_sharded_engine_two_ranks_share_the_card(cuda_device, tmp_path, pla
         for f in ("final_certificates", "history", "rounds", "messages_sent", "messages_accepted",
                   "messages_discarded", "messages_evicted", "inflight_occupancy_peak"):
             assert r[f] == getattr(single, f), f
+
+
+@pytest.mark.cuda
+def test_cuda_pod_engine_four_ranks_share_the_card(cuda_device, tmp_path):
+    """Four gloo ranks on one card in 2 pods of 2 (W_local = 2), sparse
+    control on the queues, cross_pod_every_k = 1: the single-device run
+    on the card in certificates, history and accepted; K2 once and K3
+    twice a round on every rank (tier 1 and the cross-pod flush)."""
+    from repro_torch.launch.mesh import spawn_world
+
+    res = spawn_world(_sharded_toy_rank, ["cuda:0"] * 4, tmp_path,
+                      args=(dict(cross_pod_every_k=1, cross_pod_top_k=1),), pods=2)
+    single = _toy_run(cuda_device, control_plane="sparse")
+    for r in res:
+        assert r["host_staged"]
+        assert r["launches"]["round_step"] == 24
+        assert r["launches"]["queue_ingest"] == 48
+        for f in ("final_certificates", "history", "rounds", "messages_accepted"):
+            assert r[f] == getattr(single, f), f
+        assert 0 < r["messages_sent_dcn"] < r["messages_sent"]
+        assert r["messages_sent"] == res[0]["messages_sent"]

@@ -438,20 +438,36 @@ def test_invalid_configs_raise_like_reference():
 
 def test_publisher_and_mesh_deferred():
     """The publisher is ported (it needs publish_every_k >= 1, as in the
-    reference). The 1-D sharded engine is ported; a (pod, workers) mesh
-    still raises, naming ROADMAP item 10b, and a mesh with no ``workers``
-    axis raises the reference's ValueError."""
+    reference). Nothing about meshes is deferred any more: both sharded
+    engines are ported. As in the reference, ``TMSNEngine`` itself takes
+    a config with a (pod, workers) mesh (the mesh is the factory's
+    concern), a (workers, pod) axis order and a mesh with no ``workers``
+    axis raise the reference's ValueErrors, text for text."""
     period, dec = _toy_args(4)
     eng = teng.TMSNEngine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, **PINNED), device=CPU)
     with pytest.raises(ValueError, match="publish_every_k >= 1"):
         eng.attach_publisher(object())
 
     class PodMesh:
-        size, axis_names = 4, ("pod", "workers")
+        size, axis_names, shape = 4, ("pod", "workers"), {"pod": 2, "workers": 2}
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
-        teng.make_engine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, mesh=PodMesh(), **PINNED),
-                         device=CPU)
+    assert type(jeng.TMSNEngine(JaxToyWorker(period, dec),
+                                jeng.EngineConfig(n_workers=4, mesh=PodMesh(), **PINNED))) is jeng.TMSNEngine
+    eng = teng.TMSNEngine(TorchToyWorker(period, dec), teng.EngineConfig(n_workers=4, mesh=PodMesh(), **PINNED),
+                          device=CPU)
+    assert type(eng) is teng.TMSNEngine
+
+    class BadPodOrder:
+        size, axis_names = 4, ("workers", "pod")
+
+    with pytest.raises(ValueError) as je:
+        jeng.make_engine(JaxToyWorker(period, dec),
+                         jeng.EngineConfig(n_workers=4, mesh=BadPodOrder(), **PINNED))
+    with pytest.raises(ValueError) as te:
+        teng.make_engine(TorchToyWorker(period, dec),
+                         teng.EngineConfig(n_workers=4, mesh=BadPodOrder(), **PINNED), device=CPU)
+    assert str(te.value) == str(je.value) == (
+        "engine mesh must have axes ('workers',) or ('pod', 'workers'), got ('workers', 'pod')")
 
     class DataMesh:
         size, axis_names = 4, ("data",)

@@ -454,14 +454,17 @@ class TestPlans:
     @pytest.mark.parametrize("nw,n", [(10, 2048), (256, 2048), (1, 2048), (1, 180_000), (3, 7), (1, 0), (4096, 1)])
     @pytest.mark.parametrize("sms", [132, 1])
     def test_edge_scan_plan_covers_every_row(self, nw, n, sms):
-        tile_rows, tiles, group = tops.edge_scan_plan(nw, n, sms)
-        assert tiles >= 1 and tile_rows >= 1 and 1 <= group <= tiles
+        tile_rows, tiles, group, fold = tops.edge_scan_plan(nw, n, sms)
+        assert tiles >= 1 and tile_rows >= 1 and 1 <= group <= tiles and fold in (1, group)
         assert (tiles - 1) * tile_rows < max(n, 1) <= tiles * tile_rows  # no empty tile
         groups = -(-tiles // group)
         assert group <= tops.EDGE_SCAN_ONE_LEVEL_TILES or groups <= group
+        # the split is the lone worker's whatever W: W sets only the fold
+        assert tops.edge_scan_plan(1, n, sms)[:3] == (tile_rows, tiles, group)
         if sms == 132 and n >= 2048:  # the main shapes come within a worker of the target
             target = tops.EDGE_SCAN_BLOCKS_PER_SM * sms
-            assert nw * tiles > min(target - nw, -(-n // tops.EDGE_SCAN_MIN_TILE_ROWS) * nw - 1)
+            blocks = nw * -(-tiles // fold)
+            assert blocks > min(target - nw, -(-n // tops.EDGE_SCAN_MIN_TILE_ROWS) * nw - 1)
 
     @pytest.mark.parametrize("nw", [1, 10, 4096, 10240])
     @pytest.mark.parametrize("cap", [1, 64, 3500])

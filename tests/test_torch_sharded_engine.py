@@ -19,6 +19,14 @@ twin of its ``ShardableToyWorker``:
     and the collectives (bits kept, ``-0.0`` included);
   * batched Sparrow on the small_ref data, with kernels off and through
     the plain K1: certificates, history and models bit for bit;
+  * the reference's ``TestPodMesh`` on a pod mesh of 2 pods built in the
+    same world (``make_worker_mesh(n, pods=2)``: 2 pods of 2 ranks in the
+    world of 4, 2 pods of 1 in the world of 2): at ``cross_pod_every_k=1``
+    the flat engine's and the single device's certificates, history and
+    adoptions, dense and gated, with fail-stop and laggards, at chunked
+    dispatch 1 and 8, and on batched Sparrow; ``k = 8`` as a measured
+    approximation; the tier byte formulas; the env defaults; the
+    refusals of a bad axis order and bad knobs;
   * every rank returns the same result.
 
 One world per size is started for the module (``spawn``, a file store in
@@ -27,6 +35,8 @@ assert on the results. Neither the ranks nor this module import JAX;
 tests/test_torch_sharded_reference.py holds the same engine to the
 reference's sharded engine.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -156,11 +166,13 @@ TOY = {
 
 def _config(w, mesh=None, **kw):
     kw = dict(kw)
+    env = kw.pop("env", False)
     if "fault" in kw:
         kw["fault_plan"] = teng.FaultPlan(**kw.pop("fault"))
     if "membership" in kw:
         kw["membership"] = teng.MembershipPlan(**kw.pop("membership"))
-    return teng.EngineConfig(**{**PINNED, "n_workers": w, "mesh": mesh, **kw})
+    pinned = {k: v for k, v in PINNED.items() if not (env and k.startswith("cross_pod"))}
+    return teng.EngineConfig(**{**pinned, "n_workers": w, "mesh": mesh, **kw})
 
 
 class _Log:
@@ -176,7 +188,8 @@ def _summary(res, publisher=None):
         certs=res.final_certificates, history=res.history, rounds=res.rounds, sim_time=res.sim_time,
         cost=res.cost_units_total, gossip_bytes=res.gossip_bytes_per_round,
         control_bytes=res.control_bytes_per_round, mode=res.gossip_mode,
-        **{f: getattr(res, f) for f in COUNTERS},
+        gossip_bytes_per_round_ici=res.gossip_bytes_per_round_ici,
+        gossip_bytes_per_round_dcn=res.gossip_bytes_per_round_dcn, **{f: getattr(res, f) for f in COUNTERS},
     )
     if isinstance(res.final_models[0], dict):
         out["adopted_from"] = [int(m["adopted_from"]) for m in res.final_models]
@@ -187,13 +200,14 @@ def _summary(res, publisher=None):
     return out
 
 
-COUNTERS = ("messages_sent", "messages_accepted", "messages_discarded", "messages_evicted",
-            "inflight_occupancy_peak", "messages_dropped_injected", "messages_corrupt_rejected",
-            "workers_joined", "inflight_capacity_selected", "events_processed", "bytes_broadcast")
+COUNTERS = ("messages_sent", "messages_sent_dcn", "messages_accepted", "messages_discarded",
+            "messages_evicted", "inflight_occupancy_peak", "messages_dropped_injected",
+            "messages_corrupt_rejected", "workers_joined", "inflight_capacity_selected", "events_processed",
+            "bytes_broadcast")
 
 
-def _run_toy(name, mesh=None):
-    workload, w, kw, _ = TOY[name]
+def _run_toy(name, mesh=None, table=None):
+    workload, w, kw, _ = (table or TOY)[name]
     cfg = _config(w, mesh, **kw)
     worker = ShardableTorchToy(*workload(w))
     eng = teng.make_engine(worker, cfg, CPU) if mesh is None else teng.make_engine(worker, cfg)
@@ -232,6 +246,33 @@ def _sparrow_worker(use_kernel):
     return BatchedSparrowWorker(xb, y, cfg, device=CPU)
 
 
+# ---------------------------------------------------------------------------
+# the reference's TestPodMesh (tests/test_sharded_engine.py:371-541)
+# ---------------------------------------------------------------------------
+
+POD_W = 32
+PODS = 2
+#: name -> (workload, W, config kwargs, the flat/single-device twin or None);
+#: "*_flat" twins run on the world's 1-D mesh and on one device
+POD = {
+    "k1_dense": (_busy, POD_W, dict(max_rounds=30, gossip_mode="dense"), "k1_dense"),
+    "k1_gated": (_busy, POD_W, dict(max_rounds=30, gossip_mode="gated"), "k1_gated"),
+    "k1_failstop_laggards": (_busy, POD_W, dict(max_rounds=25, speed=[1.0] * (POD_W - 2) + [0.25, 0.5],
+                                                fail_round=[5] + [10**6] * (POD_W - 1)),
+                             "k1_failstop_laggards"),
+    "k1_sparse_queues": (_busy, POD_W, dict(max_rounds=30, gossip_mode="gated", control_plane="sparse",
+                                            inflight_capacity=16), "k1_dense"),
+    "rpd1": (_busy, POD_W, dict(max_rounds=24, rounds_per_dispatch=1), None),
+    "rpd8": (_busy, POD_W, dict(max_rounds=24, rounds_per_dispatch=8), None),
+    "k8": (_busy, POD_W, dict(max_rounds=30, cross_pod_every_k=8), None),
+    "bytes_dense": (_busy, POD_W, dict(max_rounds=10, cross_pod_every_k=4, cross_pod_top_k=2), None),
+    "bytes_gated": (_busy, POD_W, dict(max_rounds=10, gossip_mode="gated", cross_pod_every_k=4,
+                                       cross_pod_top_k=2), None),
+    "env_defaults": (_busy, POD_W, dict(max_rounds=20, env=True), None),
+}
+POD_FLAT = {name: POD[name] for name in ("k1_dense", "k1_gated", "k1_failstop_laggards")}
+
+
 def _run_sparrow(name, mesh=None):
     kw = dict(SPARROW[name])
     worker = _sparrow_worker(kw.pop("use_kernel"))
@@ -245,7 +286,19 @@ def _run_sparrow(name, mesh=None):
 # ---------------------------------------------------------------------------
 
 
-def _errors(mesh):
+def run_on_mesh(mesh, runs):
+    """``runs``: name -> (period, dec, EngineConfig without a mesh). Each
+    through ``make_engine`` on ``mesh`` with the shardable toy; the
+    results without their models. A rank function for other modules'
+    worlds (tests/test_torch_chaos.py's pod mesh)."""
+    out = {}
+    for name, (period, dec, cfg) in runs.items():
+        res = teng.make_engine(ShardableTorchToy(period, dec), dataclasses.replace(cfg, mesh=mesh)).run()
+        out[name] = dataclasses.replace(res, final_models=[])
+    return out
+
+
+def _errors(mesh, pod_mesh):
     """The factory's and the engine's refusals on a real mesh, as text."""
     out = {}
     toy = ShardableTorchToy(*_busy(8))
@@ -253,13 +306,16 @@ def _errors(mesh):
     class NoWorkers:
         size, axis_names, device = mesh.size, ("data",), mesh.device
 
-    class PodMesh:
-        size, axis_names, device = mesh.size, ("pod", "workers"), mesh.device
+    class BadPodOrder:
+        size, axis_names, device = mesh.size, ("workers", "pod"), mesh.device
 
     cases = {
         "no_workers_axis": lambda: teng.make_engine(toy, _config(8, NoWorkers())),
-        "pod_mesh": lambda: teng.make_engine(toy, _config(8, PodMesh())),
-        "pods_arg": lambda: tmesh.make_worker_mesh(mesh.size, pods=2, device=CPU),
+        "bad_pod_axis_order": lambda: teng.make_engine(toy, _config(8, BadPodOrder())),
+        "pods_zero": lambda: tmesh.make_worker_mesh(mesh.size, pods=0, device=CPU),
+        "pods_indivisible": lambda: tmesh.make_worker_mesh(mesh.size, pods=3, device=CPU),
+        "bad_cross_pod_every_k": lambda: teng.make_engine(toy, _config(8, pod_mesh, cross_pod_every_k=0)),
+        "bad_cross_pod_top_k": lambda: teng.make_engine(toy, _config(8, pod_mesh, cross_pod_top_k=0)),
         # the card by default; without one it raises before any collective
         "default_device": lambda: tmesh.make_worker_mesh(mesh.size),
         "world_size": lambda: tmesh.make_worker_mesh(mesh.size - 1, device=CPU),
@@ -275,6 +331,11 @@ def _errors(mesh):
         except Exception as e:  # the test asserts the type and the text
             out[k] = (type(e).__name__, str(e))
     out["engine_type"] = type(teng.make_engine(toy, _config(8, mesh))).__name__
+    # a pod mesh builds the sharded engine, as the reference's make_engine does
+    out["pod_mesh"] = type(teng.make_engine(toy, _config(8, pod_mesh))).__name__
+    # pods=2 again in the same world: a second set of pod groups
+    again = tmesh.make_worker_mesh(mesh.size, pods=2, device=CPU)
+    out["pods_arg"] = (again.axis_names, again.shape, again.pod, again.intra.rank, again.intra.size)
     return out
 
 
@@ -308,10 +369,26 @@ def _collectives(mesh):
     )
 
 
+def _pod_collectives(pod_mesh):
+    """One gather over the pod (tier 1) and one over the world (tier 2)."""
+    r = pod_mesh.rank
+    pod_mesh.collectives = pod_mesh.intra.collectives = 0
+    intra = tmesh.all_gather_tree(pod_mesh.intra, {"r": torch.tensor([r])})
+    world = tmesh.all_gather_tree(pod_mesh, {"r": torch.tensor([r])})
+    return dict(intra=intra["r"].tolist(), world=world["r"].tolist(), tier1=pod_mesh.intra.collectives,
+                tier2=pod_mesh.collectives)
+
+
 def _rank_program(mesh):
+    pod_mesh = tmesh.make_worker_mesh(mesh.size, pods=PODS, device=CPU)
     out = {"toy": {name: _run_toy(name, mesh) for name in TOY}}
     out["sparrow"] = {name: _run_sparrow(name, mesh) for name in SPARROW}
-    out["errors"] = _errors(mesh)
+    out["pod"] = {name: _run_toy(name, pod_mesh, POD) for name in POD}
+    out["pod_flat"] = {name: _run_toy(name, mesh, POD_FLAT) for name in POD_FLAT}
+    out["pod_sparrow"] = _run_sparrow("sparrow_dense", pod_mesh)
+    out["pod_mesh"] = dict(axis_names=pod_mesh.axis_names, shape=pod_mesh.shape, pod=pod_mesh.pod,
+                           **_pod_collectives(pod_mesh))
+    out["errors"] = _errors(mesh, pod_mesh)
     out["collectives"] = _collectives(mesh)
     return out
 
@@ -330,7 +407,8 @@ def single():
     torch.set_num_threads(1)
     try:
         return {"toy": {name: _run_toy(name) for name in TOY},
-                "sparrow": {name: _run_sparrow(name) for name in SPARROW}}
+                "sparrow": {name: _run_sparrow(name) for name in SPARROW},
+                "pod_flat": {name: _run_toy(name, None, POD_FLAT) for name in POD_FLAT}}
     finally:
         torch.set_num_threads(threads)
 
@@ -370,6 +448,8 @@ def test_every_rank_returns_the_same_result(worlds, n):
     for r in range(1, n):
         assert res[r]["toy"] == res[0]["toy"]
         assert res[r]["sparrow"] == res[0]["sparrow"]
+        assert res[r]["pod"] == res[0]["pod"]
+        assert res[r]["pod_sparrow"] == res[0]["pod_sparrow"]
 
 
 @pytest.mark.parametrize("n", WORLDS)
@@ -414,8 +494,16 @@ def test_factory_and_refusals(worlds, n):
     err = worlds[n][0]["errors"]
     assert err["engine_type"] == "ShardedTMSNEngine"
     assert err["no_workers_axis"] == ("ValueError", "engine mesh needs a 'workers' axis, got ('data',)")
-    for k in ("pod_mesh", "pods_arg"):
-        assert err[k][0] == "NotImplementedError" and "item 10b" in err[k][1]
+    # a pod mesh now builds the engine and a second pod mesh in the same
+    # world builds; the reference's refusals, text for text
+    assert err["pod_mesh"] == "ShardedTMSNEngine"
+    assert err["pods_arg"] == (("pod", "workers"), {"pod": 2, "workers": n // 2}, 0, 0, n // 2)
+    assert err["bad_pod_axis_order"] == (
+        "ValueError", "engine mesh must have axes ('workers',) or ('pod', 'workers'), got ('workers', 'pod')")
+    assert err["pods_zero"] == ("ValueError", "pods=0 must be >= 1")
+    assert err["pods_indivisible"] == ("ValueError", f"num_devices={n} must divide into 3 pods")
+    assert err["bad_cross_pod_every_k"] == ("ValueError", "cross_pod_every_k must be >= 1, got 0")
+    assert err["bad_cross_pod_top_k"] == ("ValueError", "cross_pod_top_k must be >= 1, got 0")
     assert err["indivisible"][0] == "ValueError" and "must divide over" in err["indivisible"][1]
     assert err["bad_mode"][0] == "ValueError" and "gossip_mode" in err["bad_mode"][1]
     assert err["bad_device"][0] == "ValueError"
@@ -457,3 +545,94 @@ def test_collectives_copy_bits(worlds, n):
     assert c["edge_scan_equal"]
     assert (c["backend"], c["host_staged"], c["shape"], c["axis_names"]) == (
         "gloo", False, {"workers": n}, ("workers",))
+
+
+# ---------------------------------------------------------------------------
+# the pod mesh (the reference's TestPodMesh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", WORLDS)
+@pytest.mark.parametrize("name", [k for k, v in POD.items() if v[3]])
+def test_pod_k1_identical_to_flat_and_single_device(worlds, single, n, name):
+    """k = 1 under uniform delay: certificates, history, rounds, accepted
+    and adoptions of the flat 1-D engine and of one device (dense, gated,
+    sparse control on queues; fail-stop and laggards)."""
+    got = worlds[n][0]["pod"][name]
+    twin = POD[name][3]
+    for want in (worlds[n][0]["pod_flat"][twin], single["pod_flat"][twin]):
+        for f in ("certs", "history", "rounds", "messages_accepted", "adopted_from"):
+            assert got[f] == want[f], f
+    assert 0 < got["messages_sent_dcn"] < got["messages_sent"]
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pod_chunked_dispatch_identical(worlds, n):
+    pod = worlds[n][0]["pod"]
+    assert pod["rpd8"]["certs"] == pod["rpd1"]["certs"]
+    assert pod["rpd8"]["history"] == pod["rpd1"]["history"]
+
+
+def _monotone(res):
+    last: dict = {}
+    for _, wid, cert in res["history"]:
+        assert np.isfinite(cert) and cert <= last.get(wid, np.inf), wid
+        last[wid] = cert
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pod_k_gt_1_is_measured_approximation(worlds, n):
+    """k > 1 trades DCN traffic for staleness: certificates stay sound and
+    the amortized DCN bytes fall k-fold; end-state equality is not
+    asserted (the divergence is reported, not assumed)."""
+    k1, k8 = worlds[n][0]["pod"]["k1_dense"], worlds[n][0]["pod"]["k8"]
+    assert k8["gossip_bytes_per_round_dcn"] * 8 == k1["gossip_bytes_per_round_dcn"]
+    assert k8["gossip_bytes_per_round_ici"] == k1["gossip_bytes_per_round_ici"]
+    assert 0 < k8["messages_sent_dcn"] < k1["messages_sent_dcn"]
+    assert all(c <= 0.0 for c in k8["certs"])
+    _monotone(k8)
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pod_traffic_tier_accounting(worlds, n):
+    """The reference's tier formulas at W = 32, payload 8 B, dense
+    control, cross_pod_every_k = 4, cross_pod_top_k = 2."""
+    pod = worlds[n][0]["pod"]
+    p, wpp, w_pod = 8, n // PODS, POD_W // PODS
+    dense, gated = pod["bytes_dense"], pod["bytes_gated"]
+    assert dense["gossip_bytes_per_round_ici"] == w_pod * (p + 4 + 1)
+    assert dense["gossip_bytes_per_round_dcn"] == n * 2 * (p + 4 + 4) // 4
+    assert dense["gossip_bytes"] == dense["gossip_bytes_per_round_ici"] + dense["gossip_bytes_per_round_dcn"]
+    assert dense["control_bytes"] == w_pod * 5 + n * 2 * 8 // 4
+    assert gated["gossip_bytes_per_round_ici"] == w_pod * 5 + wpp * 1 * (p + 4)
+    assert dense["messages_sent"] > dense["messages_sent_dcn"] > 0
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pod_sparrow_k1_identical_to_flat(worlds, n):
+    got, want = worlds[n][0]["pod_sparrow"], worlds[n][0]["sparrow"]["sparrow_dense"]
+    for f in ("certs", "history", "rounds", "messages_accepted", "models"):
+        assert got[f] == want[f], f
+    assert got["messages_sent_dcn"] > 0 and min(got["certs"]) < 0.0
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pod_env_defaults_flow_into_the_engine(worlds, n):
+    res = worlds[n][0]["pod"]["env_defaults"]
+    assert res["gossip_bytes_per_round_dcn"] > 0
+    assert all(c <= 0.0 for c in res["certs"])
+    assert res["messages_sent"] >= res["messages_sent_dcn"] > 0
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pod_mesh_layout_and_tiers(worlds, n):
+    """pod is the slow axis; tier 1 gathers the pod's ranks, tier 2 the
+    world, each counted on its own mesh."""
+    for r, res in enumerate(worlds[n]):
+        m = res["pod_mesh"]
+        wpp = n // PODS
+        assert (m["axis_names"], m["shape"], m["pod"]) == (("pod", "workers"), {"pod": PODS, "workers": wpp},
+                                                           r // wpp)
+        assert m["intra"] == [(r // wpp) * wpp + i for i in range(wpp)]
+        assert m["world"] == list(range(n))
+        assert (m["tier1"], m["tier2"]) == (1, 1)

@@ -1,5 +1,7 @@
 """The port's sharded engine at world 4 (gloo, CPU ranks) against the
-reference's ``ShardedTMSNEngine`` on 4 forced host devices.
+reference's ``ShardedTMSNEngine`` on 4 forced host devices, on the 1-D
+``("workers",)`` mesh and on the two-tier ``("pod", "workers")`` mesh
+of 2 pods of 2 (``make_worker_mesh(4, pods=2)`` on both sides).
 
 The reference runs in a subprocess (this file run as a script) that sets
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` before it imports
@@ -17,7 +19,10 @@ Held: certificates, history, rounds, every counter,
 the simulated clock and each worker's adoption, EXACTLY on the toy
 worker (dense, gated and sparse control, single sender with a target,
 fail-stop, laggards, a delay matrix, C = 1 eviction, a fault plan);
-on batched Sparrow the same (round, worker) history and every counter
+on the pod mesh also ``messages_sent_dcn`` and the ICI/DCN byte split
+(dense and gated gossip, sparse control, queues, auto capacity,
+``cross_pod_every_k`` 4 and 8, a partition window); on batched Sparrow,
+flat and pod, the same (round, worker) history and every counter
 exactly, certificates to 1e-5 (the port's single-device Sparrow
 tolerance).
 """
@@ -36,7 +41,8 @@ N_DEV = 4
 
 #: name -> (workload, W, config kwargs); workloads: "busy" (every worker
 #: fires, period 1 or 2), "lone" (worker 0 alone fires), "even" (every
-#: worker fires every segment), "delay" (period 1 or 2, larger steps)
+#: worker fires every segment), "delay" (period 1 or 2, larger steps),
+#: "chaos" (tests/test_chaos.py's W = 8 toy)
 SCENARIOS = {
     "dense_delay2": ("busy", 8, dict(max_rounds=30, delay_rounds=2)),
     "gated": ("busy", 8, dict(max_rounds=30, gossip_mode="gated")),
@@ -54,7 +60,46 @@ SCENARIOS = {
     "faults_queues": ("busy", 8, dict(max_rounds=24, inflight_capacity=16,
                                       fault=dict(drop_prob=0.1, duplicate_prob=0.3, corrupt_prob=0.1,
                                                  reorder_max=1, seed=13))),
+    # the flat anchor of the pod runs below
+    "dense_uniform_w16": ("busy", 16, dict(max_rounds=30)),
 }
+PODS = 2
+#: on make_worker_mesh(N_DEV, pods=PODS): W = 16, 30 rounds, k = 1 unless set
+POD_SCENARIOS = {
+    "pod_dense": ("busy", 16, dict(max_rounds=30)),
+    "pod_gated": ("busy", 16, dict(max_rounds=30, gossip_mode="gated")),
+    "pod_gated_sparse_c8": ("busy", 16, dict(max_rounds=30, gossip_mode="gated", control_plane="sparse",
+                                             inflight_capacity=8)),
+    "pod_queues_c16": ("busy", 16, dict(max_rounds=30, inflight_capacity=16)),
+    "pod_auto": ("busy", 16, dict(max_rounds=30, gossip_mode="gated", control_plane="sparse",
+                                  inflight_capacity="auto")),
+    "pod_k4": ("busy", 16, dict(max_rounds=30, cross_pod_every_k=4)),
+    "pod_sparse_c8_k8": ("busy", 16, dict(max_rounds=30, gossip_mode="gated", control_plane="sparse",
+                                          inflight_capacity=8, cross_pod_every_k=8)),
+    "pod_partition": ("busy", 16, dict(max_rounds=30,
+                                       fault=dict(partition_start=4, partition_stop=12, seed=1))),
+    # tests/test_torch_chaos.py's drop scenario on its pod-mesh substrate
+    "pod_drop_w8": ("chaos", 8, dict(max_rounds=24, rounds_per_dispatch=8,
+                                     fault=dict(drop_prob=0.3, seed=7))),
+}
+#: (history entries, sent, sent_dcn, accepted, ICI B/round, DCN B/round,
+#: dropped) of the flat anchor and the pod runs, as the reference's pod
+#: engine gives them
+POD_FIGURES = {
+    "dense_uniform_w16": (488, 705, 0, 435, 208, 0, 0),
+    "pod_dense": (488, 633, 304, 435, 104, 64, 0),
+    "pod_gated": (488, 549, 304, 435, 64, 64, 0),
+    "pod_gated_sparse_c8": (488, 549, 304, 435, 40, 80, 0),
+    "pod_queues_c16": (488, 633, 304, 435, 104, 64, 0),
+    "pod_auto": (488, 549, 304, 435, 40, 80, 0),
+    "pod_k4": (337, 478, 128, 281, 104, 16, 0),
+    "pod_sparse_c8_k8": (337, 390, 96, 277, 40, 10, 0),
+    "pod_partition": (457, 708, 344, 399, 104, 64, 96),
+    "pod_drop_w8": (167, 297, 168, 123, 52, 64, 88),
+}
+#: tests/test_chaos.py's PERIOD and DEC at its W = 8
+CHAOS_PERIOD = [1, 2, 3, 1, 2, 3, 1, 2]
+CHAOS_DEC = [0.5, 0.9, 1.3, 0.7, 1.1, 0.6, 0.8, 1.0]
 SPARROW_W = 8
 SPARROW_ROUNDS = 20
 SPARROW_DRAWS = SPARROW_ROUNDS + 2
@@ -72,6 +117,8 @@ def _workload(kind, w):
         return [1] + [10**9] * (w - 1), [0.1] * w
     if kind == "even":
         return [1] * w, [0.1] * w
+    if kind == "chaos":
+        return CHAOS_PERIOD, CHAOS_DEC
     return [1, 2] * (w // 2), [0.05 * (i + 1) for i in range(w)]
 
 
@@ -88,14 +135,14 @@ def _summary(res, models):
     return dict(
         certs=[float(c) for c in res.final_certificates], history=res.history, rounds=res.rounds,
         sim_time=res.sim_time, cost=res.cost_units_total, gossip_bytes=res.gossip_bytes_per_round,
-        control_bytes=res.control_bytes_per_round, mode=res.gossip_mode,
-        **{f: getattr(res, f) for f in COUNTERS}, models=models,
+        control_bytes=res.control_bytes_per_round, mode=res.gossip_mode, ici=res.gossip_bytes_per_round_ici,
+        dcn=res.gossip_bytes_per_round_dcn, **{f: getattr(res, f) for f in COUNTERS}, models=models,
     )
 
 
-COUNTERS = ("messages_sent", "messages_accepted", "messages_discarded", "messages_evicted",
-            "inflight_occupancy_peak", "messages_dropped_injected", "messages_corrupt_rejected",
-            "events_processed", "bytes_broadcast")
+COUNTERS = ("messages_sent", "messages_sent_dcn", "messages_accepted", "messages_discarded",
+            "messages_evicted", "inflight_occupancy_peak", "messages_dropped_injected", "messages_corrupt_rejected",
+            "inflight_capacity_selected", "events_processed", "bytes_broadcast")
 
 
 def _sparrow_setup():
@@ -142,21 +189,24 @@ def _reference_main(out_path):
         def export_models(self, state):
             return host_leaves(super().export_models(state))
 
-    mesh = make_worker_mesh(N_DEV)
-    out = {"toy": {}, "sparrow": {}}
-    for name, (kind, w, kw) in SCENARIOS.items():
-        cfg = jeng.EngineConfig(mesh=mesh, **_config_kwargs(jeng, w, kw, "ref"))
-        eng = jeng.make_engine(HostToy(*_workload(kind, w)), cfg)
-        assert isinstance(eng, ShardedTMSNEngine)
-        res = eng.run()
-        out["toy"][name] = _summary(res, [int(m["adopted_from"]) for m in res.final_models])
+    mesh, pod_mesh = make_worker_mesh(N_DEV), make_worker_mesh(N_DEV, pods=PODS)
+    assert pod_mesh.axis_names == ("pod", "workers")
+    out = {"toy": {}, "pod": {}, "sparrow": {}}
+    for key, m, table in (("toy", mesh, SCENARIOS), ("pod", pod_mesh, POD_SCENARIOS)):
+        for name, (kind, w, kw) in table.items():
+            cfg = jeng.EngineConfig(mesh=m, **_config_kwargs(jeng, w, kw, "ref"))
+            eng = jeng.make_engine(HostToy(*_workload(kind, w)), cfg)
+            assert isinstance(eng, ShardedTMSNEngine)
+            res = eng.run()
+            out[key][name] = _summary(res, [int(m["adopted_from"]) for m in res.final_models])
 
     sc, base, ecfg = _sparrow_setup()
     xb, y, _ = make_splice_like(SpliceConfig(n=2400, d=16, num_bins=8, seed=3))
     worker = HostSparrow(jnp.asarray(xb), jnp.asarray(y), SparrowConfig(scanner=ScannerConfig(**sc), **base))
-    cfg = jeng.EngineConfig(mesh=mesh, **_config_kwargs(jeng, SPARROW_W, ecfg, "ref"))
-    res = jeng.make_engine(worker, cfg).run()
-    out["sparrow"]["dense"] = _summary(res, [int(m.count) for m in res.final_models])
+    for name, m in (("dense", mesh), ("pod", pod_mesh)):
+        cfg = jeng.EngineConfig(mesh=m, **_config_kwargs(jeng, SPARROW_W, ecfg, "ref"))
+        res = jeng.make_engine(worker, cfg).run()
+        out["sparrow"][name] = _summary(res, [int(m.count) for m in res.final_models])
     # the reference's minimal-variance offsets: draw j of stream s is
     # uniform(split(k_j)[1]), k_0 = PRNGKey(s), k_{j+1} = split(k_j)[0]
     draws = {}
@@ -196,20 +246,25 @@ def _port_program(mesh, draws, splice):
     from repro_torch.boosting.scanner import ScannerConfig
     from repro_torch.boosting.sparrow import SparrowConfig
     from repro_torch.core import engine as teng
+    from repro_torch.launch.mesh import make_worker_mesh
     from test_torch_sharded_engine import ShardableTorchToy
 
-    out = {"toy": {}, "sparrow": {}}
-    for name, (kind, w, kw) in SCENARIOS.items():
-        cfg = teng.EngineConfig(mesh=mesh, **_config_kwargs(teng, w, kw, "pallas"))
-        res = teng.make_engine(ShardableTorchToy(*_workload(kind, w)), cfg).run()
-        out["toy"][name] = _summary(res, [int(m["adopted_from"]) for m in res.final_models])
+    # the pod mesh over the same ranks as the world's flat one
+    pod_mesh = make_worker_mesh(N_DEV, pods=PODS, device="cpu")
+    out = {"toy": {}, "pod": {}, "sparrow": {}}
+    for key, m, table in (("toy", mesh, SCENARIOS), ("pod", pod_mesh, POD_SCENARIOS)):
+        for name, (kind, w, kw) in table.items():
+            cfg = teng.EngineConfig(mesh=m, **_config_kwargs(teng, w, kw, "pallas"))
+            res = teng.make_engine(ShardableTorchToy(*_workload(kind, w)), cfg).run()
+            out[key][name] = _summary(res, [int(m["adopted_from"]) for m in res.final_models])
     sc, base, ecfg = _sparrow_setup()
     txb, ty = convert.dataset_from_numpy(*splice, "cpu")
     worker = BatchedSparrowWorker(txb, ty, SparrowConfig(scanner=ScannerConfig(**sc), **base), device="cpu",
                                   uniforms=TableUniforms(draws))
-    cfg = teng.EngineConfig(mesh=mesh, **_config_kwargs(teng, SPARROW_W, ecfg, "pallas"))
-    res = teng.make_engine(worker, cfg).run()
-    out["sparrow"]["dense"] = _summary(res, [int(m.count) for m in res.final_models])
+    for name, m in (("dense", mesh), ("pod", pod_mesh)):
+        cfg = teng.EngineConfig(mesh=m, **_config_kwargs(teng, SPARROW_W, ecfg, "pallas"))
+        res = teng.make_engine(worker, cfg).run()
+        out["sparrow"][name] = _summary(res, [int(m.count) for m in res.final_models])
     assert torch.get_num_threads() == 1
     return out
 
@@ -238,8 +293,8 @@ def port(reference, tmp_path_factory):
     return res[0]
 
 
-EXACT = ("certs", "history", "rounds", "sim_time", "cost", "gossip_bytes", "control_bytes", "mode", "models",
-         *COUNTERS)
+EXACT = ("certs", "history", "rounds", "sim_time", "cost", "gossip_bytes", "control_bytes", "mode", "ici",
+         "dcn", "models", *COUNTERS)
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
@@ -257,15 +312,61 @@ def test_byte_figures_of_the_three_configurations(reference, port):
             assert (side["toy"][name]["gossip_bytes"], side["toy"][name]["control_bytes"]) == want, name
 
 
-def test_sparrow_matches_reference_sharded_engine(reference, port):
-    got, want = port["sparrow"]["dense"], reference["sparrow"]["dense"]
+@pytest.mark.parametrize("name", list(POD_SCENARIOS))
+def test_pod_matches_reference_pod_engine(reference, port, name):
+    got, want = port["pod"][name], reference["pod"][name]
+    for f in EXACT:
+        assert got[f] == want[f], f
+
+
+@pytest.mark.parametrize("name", list(POD_FIGURES))
+def test_pod_figures(reference, port, name):
+    """History length, sent, sent_dcn, accepted, the ICI/DCN bytes and the
+    drops of each pod run and its flat anchor, on both sides; at k = 1
+    the final certificates of every W = 16 run are the same."""
+    _, w, kw = POD_SCENARIOS.get(name) or SCENARIOS[name]
+    for side in (reference, port):
+        res = side["pod"].get(name) or side["toy"][name]
+        got = (len(res["history"]), res["messages_sent"], res["messages_sent_dcn"], res["messages_accepted"],
+               res["ici"], res["dcn"], res["messages_dropped_injected"])
+        assert got == POD_FIGURES[name]
+        if w == 16 and kw.get("cross_pod_every_k", 1) == 1:
+            assert res["certs"] == side["toy"]["dense_uniform_w16"]["certs"]
+    assert port["pod"]["pod_auto"]["inflight_capacity_selected"] >= 1
+
+
+def test_pod_k1_equals_flat(port):
+    """The pod mesh at k = 1 gives the flat engine's certificates, history
+    and adoptions (the reference's TestPodMesh pin) on the port."""
+    flat = port["toy"]["dense_uniform_w16"]
+    for name in ("pod_dense", "pod_gated", "pod_gated_sparse_c8", "pod_queues_c16", "pod_auto"):
+        got = port["pod"][name]
+        assert (got["certs"], got["history"], got["messages_accepted"], got["models"]) == (
+            flat["certs"], flat["history"], flat["messages_accepted"], flat["models"]), name
+        assert 0 < got["messages_sent_dcn"] < got["messages_sent"]
+
+
+def _assert_sparrow_matches(got, want):
     assert [h[:2] for h in got["history"]] == [h[:2] for h in want["history"]]
     np.testing.assert_allclose([h[2] for h in got["history"]], [h[2] for h in want["history"]],
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got["certs"], want["certs"], rtol=1e-5, atol=1e-6)
-    for f in ("rounds", "models", "gossip_bytes", "control_bytes", "mode", *COUNTERS):
+    for f in ("rounds", "models", "gossip_bytes", "control_bytes", "mode", "ici", "dcn", *COUNTERS):
         assert got[f] == want[f], f
     assert got["messages_accepted"] > 0 and min(got["certs"]) < 0.0
+
+
+def test_sparrow_matches_reference_sharded_engine(reference, port):
+    _assert_sparrow_matches(port["sparrow"]["dense"], reference["sparrow"]["dense"])
+
+
+def test_sparrow_pod_matches_reference_pod_engine(reference, port):
+    """Batched Sparrow at W = 8 on the pod mesh (W_local = 2, W_pod = 4)."""
+    got = port["sparrow"]["pod"]
+    _assert_sparrow_matches(got, reference["sparrow"]["pod"])
+    assert got["messages_sent_dcn"] > 0 and got["dcn"] > 0
+    # k = 1: the flat run's history and adoptions
+    assert got["history"] == port["sparrow"]["dense"]["history"]
 
 
 if __name__ == "__main__":

@@ -33,7 +33,8 @@ K1_CUTS = {
                           ("    if (rl < R && fq < Q) {", "    if (false) {")],
     "no_lane_sum": [("    for (int c = tid; c < pass_cells; c += kThreads) {",
                      "    for (int c = tid; c < 0; c += kThreads) {")],
-    "empty": [("  const int tile = blockIdx.x;", "  if (n >= 0) return;\n  const int tile = blockIdx.x;")],
+    "empty": [("  const int tile0 = blockIdx.x * fold;",
+               "  if (n >= 0) return;\n  const int tile0 = blockIdx.x * fold;")],
 }
 #: K2 copies
 K2_CUTS = {
