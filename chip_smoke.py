@@ -90,7 +90,28 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              on the training split, each twice with bitwise-equal models
              and test losses, and the bulk-synchronous baseline for 20
              rounds. K1's launch count in the kernels line sums main,
-             sim_main and baselines.
+             sim_main and baselines;
+  lm_small_ref  the dense LM stack on reduced(yi_9b) in float32, built on
+             the CPU from a seed and copied to the card: loss, grads, one
+             AdamW step, prefill and 4 decode steps against the CPU at rtol
+             1e-4 / atol 1e-5; then TMSN-SGD (W=4, K=2, 8 rounds) through
+             TMSNEngine against oracle_run on the card, bit for bit
+             (certificates, history and per-leaf param checksums);
+  lm_sgd     TMSN-SGD at Yi-9B's full width (d_model 4096, 32 heads, 4 KV
+             heads, d_ff 11008, vocab 64 000; depth cut to LM_LAYERS = 1,
+             params float32, compute bfloat16, remat), W=2, K=2, batch 2 x
+             256, AdamW lr 3e-4, dense in-flight state, delay 1, eps 0, 6
+             rounds: certificates finite and monotone, fires and broadcasts,
+             the payload 4 bytes a parameter; a second run of 2 rounds and
+             oracle_run over 3 bit for bit the run; ms per round (CUDA
+             events at each segment's start), tokens/s, achieved TFLOP/s
+             (6 x matmul params x tokens), ms of a forward+backward and of
+             an AdamW step, the device idle share and top kernels over 2
+             profiled rounds, peak memory; then the best model serves: a
+             2 x 128 prefill and 16 cached decode steps at scalar and at
+             per-row pos (bit for bit alike), each position's logits within
+             LM_BF16_TOL of the full forward. No TPU kernel lies on this
+             path, so the kernels line is unchanged.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -301,6 +322,365 @@ def pod_rank(mesh) -> dict:
                                    cross_pod_top_k=1)
         out[tag] = run_rank(make_engine(worker, dataclasses.replace(ecfg, **kw)), mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the LM stack and TMSN-SGD (phases lm_small_ref and lm_sgd)
+# ---------------------------------------------------------------------------
+
+#: lm_sgd: Yi-9B at full width, depth cut to LM_LAYERS (the only cut);
+#: W workers, K AdamW steps a segment, batch x seq tokens a step
+LM_ARCH, LM_LAYERS = "yi_9b", 1
+LM_W, LM_K, LM_BATCH, LM_SEQ, LM_ROUNDS = 2, 2, 2, 256, 6
+#: serving: a prompt of LM_PROMPT tokens a row, LM_DECODE decoded tokens
+LM_PROMPT, LM_DECODE = 128, 16
+#: published dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12
+#: cached decode against the full forward in bf16: |decode - full| <=
+#: LM_BF16_TOL * (1 + |full|), four steps of bf16's 2^-7 spacing
+LM_BF16_TOL = 2.0 ** -5
+
+
+def checksum(params):
+    """Per leaf and worker, the sum of the float32 bits read as int32, in
+    int64: an integer sum is exact in any order, so equal bits give equal
+    sums on the card, and one changed bit changes a sum."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    return torch.stack([torch.sum(a.view(torch.int32).reshape(a.shape[0], -1), dim=1, dtype=torch.int64)
+                        for a in tree_leaves(params)])
+
+
+class RoundClock:
+    """A batched worker that records a CUDA event as each ``scan_round``
+    starts and the checksum of the params it returns: the round period
+    and the bits of every round, the engine untouched."""
+
+    def __init__(self, worker):
+        self.worker, self.events, self.sums = worker, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.worker, name)
+
+    def scan_round(self, state, mask):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        out = self.worker.scan_round(state, mask)
+        self.sums.append(checksum(out[0].params))
+        return out
+
+    def periods_ms(self) -> list:
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+    def sums_np(self):
+        import numpy as np
+
+        return np.stack([s.cpu().numpy() for s in self.sums])
+
+
+def history_rows(res, w: int, k: int):
+    """(rounds, W) certificates after each round from a run's change
+    history: every round costs each worker ``k`` units, so an entry's
+    clock names its round; unchanged workers carry their value."""
+    import numpy as np
+
+    rows = np.full((res.rounds + 1, w), np.nan, np.float32)
+    for clock, wid, cert in res.history:
+        rows[int(round(clock / k)), wid] = cert
+    for r in range(1, res.rounds + 1):
+        rows[r] = np.where(np.isnan(rows[r]), rows[r - 1], rows[r])
+    return rows[1:]
+
+
+def bits(a):
+    import numpy as np
+
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Mean CUDA-event ms of ``fn`` over ``reps`` calls, after one warm call."""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def lm_small_ref_phase() -> None:
+    """reduced(yi_9b) in float32, built on the CPU from a seed and copied
+    to the card: loss, grads, one AdamW step (from the same grads),
+    prefill and 4 decode steps card against CPU at rtol 1e-4 / atol 1e-5;
+    then TMSN-SGD on the card, TMSNEngine against oracle_run bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import TMSNEngine, TMSNSGDConfig, lm_sgd_worker, oracle_run
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models import decode_step, init_cache, init_params, loss_fn, prefill
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = reduced(get_config(LM_ARCH))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    params_cpu = init_params(cfg, SEED, "cpu")
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab, (2, 64), dtype=np.int32)
+    prompt, steps = tokens[:, :16], tokens[:, 16:20]
+    out, cpu_grads = {}, None
+    for name in ("cpu", "cuda"):
+        params = tree_map(lambda a: a.to(name), params_cpu)
+        leaves = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+        loss, _ = loss_fn(leaves, cfg, synthetic_token_batch(torch.from_numpy(tokens).to(name)))
+        loss.backward()
+        grads = tree_map(lambda a: a.grad, leaves)
+        cpu_grads = grads if cpu_grads is None else cpu_grads
+        # the AdamW step on the same inputs on both devices: the CPU's grads
+        # (its first step moves each weight by about lr * sign(g), so a grad
+        # within rounding of zero could flip it)
+        same_grads = tree_map(lambda a: a.to(name), cpu_grads)
+        new_p, new_opt = apply_updates(params, same_grads, init_opt_state(params, opt_cfg), opt_cfg)
+        with torch.no_grad():
+            logits, pc = prefill(params, cfg, {"tokens": torch.from_numpy(prompt).to(name)})
+            caches = init_cache(cfg, 2, 20, device=name)
+            for (k, v), (pk, pv) in zip(caches[0], pc[0]):
+                k[:, :, :16], v[:, :, :16] = pk, pv
+            dec = []
+            for i in range(4):
+                tok = torch.from_numpy(steps[:, i:i + 1]).to(name)
+                lg, caches = decode_step(params, cfg, tok, caches, 16 + i)
+                dec.append(lg)
+        named = {"loss": [loss.detach()], "grads": tree_leaves(grads), "adamw_params": tree_leaves(new_p),
+                 "adamw_state": tree_leaves(new_opt), "prefill_logits": [logits],
+                 "prefill_caches": tree_leaves(pc), "decode_logits": dec}
+        out[name] = [(f"{k}[{i}]", a) for k, v in named.items() for i, a in enumerate(v)]
+    err, bad = {}, []
+    for (key, a), (_, b) in zip(out["cpu"], out["cuda"]):
+        b = b.cpu()
+        group = key.split("[")[0]
+        err[group] = max(err.get(group, 0.0), float((b.float() - a.float()).abs().max()))
+        if not torch.allclose(b, a, rtol=1e-4, atol=1e-5):
+            worst = int(((b - a).abs() - 1e-4 * a.abs()).argmax())
+            bad.append(f"{key} {tuple(a.shape)}: card {b.flatten()[worst].item()!r} "
+                       f"cpu {a.flatten()[worst].item()!r}")
+    log(f"phase lm_small_ref card_vs_cpu tensors={len(out['cuda'])} max_abs_err={json.dumps(err)} "
+        f"loss={out['cuda'][0][1].item():.6f}")
+    if bad:
+        raise AssertionError("lm_small_ref: card differs from the CPU beyond rtol 1e-4 / atol 1e-5: "
+                             + "; ".join(bad))
+
+    worker = lm_sgd_worker(cfg, opt_cfg, TMSNSGDConfig(local_steps=2), batch_size=2, seq=32, device="cuda")
+    eng_clock, orc_clock = RoundClock(worker), RoundClock(worker)
+    res = TMSNEngine(eng_clock, engine_config(4, 8, False), device="cuda").run()
+    orc = oracle_run(orc_clock, 4, 8, eps=0.0, seed=SEED)
+    rows = history_rows(res, 4, 2)
+    same = (np.array_equal(bits(rows), bits(orc.history))
+            and np.array_equal(bits(res.final_certificates), bits(orc.certs))
+            and np.array_equal(eng_clock.sums_np(), orc_clock.sums_np()))
+    if not same:
+        raise AssertionError(f"lm_small_ref: engine {rows.tolist()} != oracle {orc.history.tolist()}")
+    if not (np.all(np.isfinite(rows)) and np.all(np.diff(rows, axis=0) <= 0) and res.messages_accepted > 0):
+        raise AssertionError(f"lm_small_ref: certificates {rows.tolist()}, accepted {res.messages_accepted}")
+    log(f"phase lm_small_ref ok engine==oracle bitwise rounds={res.rounds} certificates, history and param "
+        f"checksums; accepted={res.messages_accepted} best={min(res.final_certificates):.6f} "
+        f"seconds={time.perf_counter() - t0:.3f}")
+
+
+def lm_sgd_phase() -> None:
+    """TMSN-SGD at Yi-9B's full width on the card (see the module doc)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import TMSNEngine, TMSNSGDConfig, lm_sgd_worker, oracle_run
+    from repro_torch.data.tokens import stream_tokens, synthetic_token_batch
+    from repro_torch.models import decode_step, init_cache, init_params, loss_fn, param_count, prefill
+    from repro_torch.models.config import layer_segments
+    from repro_torch.models.model import _embed, _logits, _positions
+    from repro_torch.models.transformer import forward_stack
+    from repro_torch.optim import AdamWConfig, apply_updates_, init_opt_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    shapes = init_params(cfg, SEED, device="meta")
+    n_params = param_count(shapes)
+    # every parameter but the embedding table (a gather) and the norm scales
+    norms = shapes["final_norm"].numel() + sum(lay["ln1"].numel() + lay["ln2"].numel()
+                                               for seg in shapes["decoder"] for lay in seg)
+    n_matmul = n_params - shapes["embed"].numel() - norms
+    opt_cfg = AdamWConfig(lr=3e-4)
+    worker = lm_sgd_worker(cfg, opt_cfg, TMSNSGDConfig(local_steps=LM_K), batch_size=LM_BATCH, seq=LM_SEQ,
+                           device="cuda")
+    tokens_per_round = LM_W * LM_K * LM_BATCH * LM_SEQ
+    flop_per_round = 6 * n_matmul * tokens_per_round
+
+    # ---- the run: LM_ROUNDS rounds through TMSNEngine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock_a = RoundClock(worker)
+    t0 = time.perf_counter()
+    res = TMSNEngine(clock_a, engine_config(LM_W, LM_ROUNDS, False), device="cuda").run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    rows_a, sums_a = history_rows(res, LM_W, LM_K), clock_a.sums_np()
+    periods = clock_a.periods_ms()
+    round_ms = statistics.median(periods)
+    fires = sum(1 for h in res.history if h[0] > 0)
+    payload = res.bytes_broadcast // max(res.messages_sent, 1)
+    log(f"phase lm_sgd run arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} params={n_params} "
+        f"matmul_params={n_matmul} W={LM_W} K={LM_K} batch={LM_BATCH} seq={LM_SEQ} rounds={res.rounds} "
+        f"wall_s={wall:.3f} ms_per_round={round_ms:.3f} round_periods_ms={[round(p, 3) for p in periods]} "
+        f"tokens_per_s={tokens_per_round / (round_ms / 1e3):.1f} "
+        f"tokens_per_s_wall={tokens_per_round * res.rounds / wall:.1f} "
+        f"achieved_tflops={flop_per_round / (round_ms / 1e3) / 1e12:.2f} "
+        f"bf16_peak_share={flop_per_round / (round_ms / 1e3) / BF16_OPS_PER_S:.4f} "
+        f"sent={res.messages_sent} accepted={res.messages_accepted} history_changes={fires} "
+        f"payload_bytes={payload} certificates={rows_a.tolist()} max_memory_allocated={peak_run}")
+    if res.rounds != LM_ROUNDS or not np.all(np.isfinite(rows_a)) or np.any(np.diff(rows_a, axis=0) > 0):
+        raise AssertionError(f"lm_sgd: certificates not finite and monotone: {rows_a.tolist()}")
+    if fires < 1 or res.messages_sent < 1:
+        raise AssertionError(f"lm_sgd: {fires} fires, {res.messages_sent} broadcasts")
+    if payload != 4 * n_params:
+        raise AssertionError(f"lm_sgd: payload {payload} B, not 4 x {n_params}")
+    best = int(np.argmin(res.final_certificates))
+    served = tree_map(lambda a: a.clone(), res.final_models[best])
+    del res, clock_a
+    gc.collect()
+
+    # ---- a second run of the first 2 rounds, and the oracle over 3
+    torch.cuda.reset_peak_memory_stats()
+    clock_b = RoundClock(worker)
+    again = TMSNEngine(clock_b, engine_config(LM_W, 2, False), device="cuda").run()
+    rows_b, sums_b = history_rows(again, LM_W, LM_K), clock_b.sums_np()
+    del again, clock_b
+    gc.collect()
+    if not (np.array_equal(bits(rows_b), bits(rows_a[:2])) and np.array_equal(sums_b, sums_a[:2])):
+        raise AssertionError(f"lm_sgd: two runs differ: {rows_b.tolist()} vs {rows_a[:2].tolist()}")
+    clock_o = RoundClock(worker)
+    orc = oracle_run(clock_o, LM_W, 3, eps=0.0, seed=SEED)
+    rows_o, sums_o = orc.history, clock_o.sums_np()
+    del orc, clock_o
+    gc.collect()
+    if not (np.array_equal(bits(rows_o), bits(rows_a[:3])) and np.array_equal(sums_o, sums_a[:3])):
+        raise AssertionError(f"lm_sgd: engine {rows_a[:3].tolist()} != oracle {rows_o.tolist()}")
+    log("phase lm_sgd bitwise: a second 2-round run == the run, oracle_run == the engine over 3 rounds "
+        f"(certificates, history and per-leaf param checksums) "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+
+    # ---- one step's parts on the best model: forward + backward, AdamW
+    batch = synthetic_token_batch(stream_tokens(1, 10**6, (LM_BATCH, LM_SEQ), cfg.vocab, "cuda"))
+
+    def fwd_bwd():
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), served)
+        loss, _ = loss_fn(leaves, cfg, batch)
+        loss.backward()
+        return tree_map(lambda a: a.grad, leaves)
+
+    fb_ms = event_ms(fwd_bwd)
+    grads = fwd_bwd()
+    # the worker's in-place step, on a copy of the model
+    stepped, opt = tree_map(torch.clone, served), init_opt_state(served, opt_cfg)
+    adamw_ms = event_ms(lambda: apply_updates_(stepped, grads, opt, opt_cfg))
+    del grads, opt, stepped
+    gc.collect()
+    # AdamW's least bytes: p, g, mu, nu read once, p, mu, nu written once
+    adamw_bound_ms = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    log(f"phase lm_sgd step fwd_bwd_ms={fb_ms:.3f} adamw_ms={adamw_ms:.3f} step_ms={fb_ms + adamw_ms:.3f} "
+        f"steps_per_round={LM_W * LM_K} round_ms={round_ms:.3f} "
+        f"fwd_bwd_tflops={6 * n_matmul * LM_BATCH * LM_SEQ / (fb_ms / 1e3) / 1e12:.2f} "
+        f"fwd_bwd_bound_ms={6 * n_matmul * LM_BATCH * LM_SEQ / BF16_OPS_PER_S * 1e3:.3f} "
+        f"adamw_bound_ms={adamw_bound_ms:.3f} (28 B a parameter at {HBM_BYTES_PER_S:.3g} B/s)")
+
+    # ---- where a round's device time goes: 2 rounds under the profiler
+    eng = TMSNEngine(worker, engine_config(LM_W, 2, False), device="cuda")
+    state = eng._init_state()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = eng._round_step(state)
+        torch.cuda.synchronize()
+    del state, eng
+    gc.collect()
+    by_kernel = sorted(
+        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+        key=lambda k: -k[1],
+    )
+    busy_ms = sum(k[1] for k in by_kernel) / 1e3 / 2
+    top = [{"kernel": k[0][:70], "ms_per_round": round(k[1] / 1e3 / 2, 4), "calls": k[2]}
+           for k in by_kernel[:5]]
+    log(f"phase lm_sgd profile device_ms_per_round={busy_ms:.3f} wall_ms_per_round={round_ms:.3f} "
+        f"device_idle_share={1 - busy_ms / round_ms:.4f} top5={json.dumps(top)}")
+
+    # ---- serve the best model: prefill, then cached decode
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, LM_PROMPT), dtype=np.int32)).to("cuda")
+    total = LM_PROMPT + LM_DECODE
+    with torch.no_grad():
+        prefill_ms = event_ms(lambda: prefill(served, cfg, {"tokens": prompt}))
+        logits, pc = prefill(served, cfg, {"tokens": prompt})
+
+        def decode(per_row: bool, feed=None):
+            caches = init_cache(cfg, 2, total, device="cuda")
+            for seg, pseg in zip(caches, pc):
+                for (k, v), (pk, pv) in zip(seg, pseg):
+                    k[:, :, :LM_PROMPT], v[:, :, :LM_PROMPT] = pk, pv
+            tok, outs, toks = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32), [], []
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for i in range(LM_DECODE):
+                if feed is not None:
+                    tok = feed[:, i:i + 1]
+                toks.append(tok)
+                pos = LM_PROMPT + i
+                out, caches = decode_step(served, cfg, tok, caches,
+                                          torch.full((2,), pos, dtype=torch.int32, device="cuda") if per_row
+                                          else pos)
+                outs.append(out[:, 0])
+                tok = out[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            b.record()
+            torch.cuda.synchronize()
+            return torch.stack(outs, 1), torch.cat(toks, 1), a.elapsed_time(b) / LM_DECODE
+
+        decode(False)  # warm: the decode shapes' first launches
+        dec, gen, decode_ms = decode(False)
+        dec_row, _, decode_row_ms = decode(True, feed=gen)
+        full_tokens = torch.cat([prompt, gen], 1)
+        x = _embed(served, cfg, full_tokens)
+        x, _, _ = forward_stack(served["decoder"], layer_segments(cfg), cfg, x, _positions(full_tokens))
+        full = _logits(served, cfg, x)[:, LM_PROMPT:]
+    err = (dec - full).abs()
+    bound_ok = bool((err <= LM_BF16_TOL * (1 + full.abs())).all())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    log(f"phase lm_sgd serve prompt={2}x{LM_PROMPT} decoded={LM_DECODE} prefill_ms={prefill_ms:.3f} "
+        f"decode_ms_per_token={decode_ms:.3f} decode_ms_per_token_per_row_pos={decode_row_ms:.3f} "
+        f"max_abs_err_vs_full={float(err.max()):.4g} max_abs_logit={float(full.abs().max()):.4g} "
+        f"tolerance={LM_BF16_TOL}*(1+|full|) argmax_agreement={agree:.4f} "
+        f"per_row_pos==scalar={torch.equal(dec, dec_row)} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not torch.equal(dec, dec_row):
+        raise AssertionError("lm_sgd: per-row pos decode differs from scalar pos decode")
+    if not (bound_ok and torch.isfinite(dec).all()):
+        raise AssertionError(f"lm_sgd: cached decode differs from the full forward by {float(err.max()):.4g}")
+    log(f"phase lm_sgd ok seconds={time.perf_counter() - t_phase:.3f}")
 
 
 def main() -> int:
@@ -1335,6 +1715,12 @@ def main() -> int:
         f"best_cert={bsp.final_certificates[bbest]:.6f} test_exp_loss={bloss:.4f} test_error={berr:.4f}")
     if not (bloss < 1.0 and berr < minority):
         raise AssertionError(f"baselines: bsp test loss {bloss}, error {berr}")
+
+    # ---------------------------------------------------------- lm_small_ref
+    lm_small_ref_phase()
+
+    # ---------------------------------------------------------------- lm_sgd
+    lm_sgd_phase()
 
     log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,9 @@
 The reference's pytrees arrive as numpy arrays (``jax.tree_util.tree_map(
 np.asarray, state)`` keeps their NamedTuple types) and are read by
 attribute name only, so this module imports nothing of the reference.
-Each ``*_from_numpy`` builds the port's type on ``device``; :func:`to_numpy`
+Each ``*_from_numpy`` builds the port's type on ``device`` (Sparrow's
+states, and the LM stack's parameters, AdamW state and SGD worker
+state); :func:`to_numpy`
 turns any of the port's pytrees back into numpy arrays. A test can then
 start both packages from the same ``init_batch`` state and compare them
 step by step.
@@ -20,6 +22,7 @@ from repro_torch.boosting.batched_sparrow import BatchedSparrowState
 from repro_torch.boosting.scanner import SampleState, ScannerState
 from repro_torch.boosting.sparrow import SparrowState
 from repro_torch.boosting.stumps import StumpModel
+from repro_torch.core.sgd_worker import BatchedSGDState
 from repro_torch.core.worker import tree_map
 
 
@@ -102,4 +105,40 @@ def sparrow_state_from_numpy(state: Any, seed: int, device) -> SparrowState:
         resamples=int(state.resamples),
         sample_model_count=int(state.sample_model_count),
         scan_since_resample=float(state.scan_since_resample),
+    )
+
+
+def lm_params_from_numpy(params: Any, device) -> Any:
+    """The reference's LM parameter tree (dicts and lists of numpy
+    arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` leaves it)
+    -> the same tree of tensors on ``device``, leaf for leaf."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(lm_params_from_numpy(v, device) for v in params)
+    return tensor(params, device)
+
+
+def opt_state_from_numpy(opt: Any, device) -> dict:
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` -> the port's."""
+    return {"mu": lm_params_from_numpy(opt["mu"], device), "nu": lm_params_from_numpy(opt["nu"], device),
+            "step": tensor(np.asarray(opt["step"], np.int32), device)}
+
+
+def sgd_state_from_numpy(state: Any, local_steps: int, device) -> BatchedSGDState:
+    """The reference's ``BatchedSGDState`` -> the port's.
+
+    The reference's per-worker ``key`` is replaced by the port's stream
+    bookkeeping: worker ``i`` is stream ``i + 1`` (the reference's
+    ``fold_in`` index), and it has drawn one batch block per segment it
+    ran, ``opt.step // local_steps`` (adoption leaves ``opt`` alone)."""
+    step = np.asarray(state.opt["step"], np.int32)
+    w = step.shape[0]
+    return BatchedSGDState(
+        params=lm_params_from_numpy(state.params, device),
+        opt=opt_state_from_numpy(state.opt, device),
+        cert=tensor(np.asarray(state.cert, np.float32), device),
+        est=tensor(np.asarray(state.est, np.float32), device),
+        stream=tensor(np.arange(1, w + 1, dtype=np.int64), device),
+        draws=tensor(step // int(local_steps), device),
     )

@@ -1,6 +1,7 @@
 """TMSN core: certificates, stopping rules, protocol, the event
 simulator, the single-device round engine and the engine sharded over a
-1-D or a two-tier (pod, workers) worker mesh; counterpart of
+1-D or a two-tier (pod, workers) worker mesh, and TMSN-SGD (the
+transformer worker and its oracle); counterpart of
 ``src/repro/core``."""
 
 from repro_torch.core.ess import effective_sample_size
@@ -34,6 +35,8 @@ from repro_torch.core.engine import (
     quantize_latency,
 )
 from repro_torch.core.engine_sharded import ShardedTMSNEngine, sharded_engine_available
+from repro_torch.core.tmsn_sgd import OracleResult, TMSNSGDConfig, make_oracle_round, oracle_run
+from repro_torch.core.sgd_worker import BatchedSGDState, BatchedSGDWorker, lm_sgd_worker
 
 __all__ = [
     "effective_sample_size",
@@ -64,4 +67,11 @@ __all__ = [
     "quantize_latency",
     "ShardedTMSNEngine",
     "sharded_engine_available",
+    "TMSNSGDConfig",
+    "OracleResult",
+    "make_oracle_round",
+    "oracle_run",
+    "BatchedSGDState",
+    "BatchedSGDWorker",
+    "lm_sgd_worker",
 ]

@@ -1091,14 +1091,16 @@ class TMSNEngine:
             credit = torch.where(active, credit - 1.0, credit)
         n_taken = take.sum(dtype=torch.int32)
 
-        slot_l, src_l = sent_slot.long(), best_src.long()
-        in_models = tree_map(lambda a: a[slot_l, src_l], state.ring)
         wstate = state.worker
         zeros_w = torch.zeros(certs0.shape, dtype=torch.float32, device=dev)
-        # rows with no taker skip the adoption math (on a sharded engine
-        # this is rank-local and issues no collective)
+        # rows with no taker skip the payload gather and the adoption
+        # math (on a sharded engine this is rank-local and issues no
+        # collective); the gathered payloads are dropped once adopted
         if bool(take.any()):
+            slot_l, src_l = sent_slot.long(), best_src.long()
+            in_models = tree_map(lambda a: a[slot_l, src_l], state.ring)
             wstate, adopt_cost = self.worker.adopt_batch(wstate, in_models, best_cert, take)
+            del in_models
         else:
             adopt_cost = zeros_w
 

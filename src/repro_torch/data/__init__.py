@@ -1,1 +1,2 @@
-"""Datasets."""
+"""Datasets: the splice-site analogue for boosting and synthetic token
+batches for the LM stack."""

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves, tree_map
 
 #: NVLink 4 of one H100 SXM, per direction (450 GB/s each way, 900 GB/s
 #: aggregate): NVIDIA's published figure, not measured here
@@ -201,8 +202,6 @@ def make_worker_mesh(
 def _pack(tree: Any) -> tuple[torch.Tensor, list]:
     """Every leaf's bytes, in leaf order, as one uint8 buffer; and each
     leaf's (dtype, shape, byte count)."""
-    from repro_torch.core.worker import tree_leaves  # the engine imports this module
-
     leaves = tree_leaves(tree)
     meta, parts = [], []
     for a in leaves:
@@ -217,8 +216,6 @@ def _pack(tree: Any) -> tuple[torch.Tensor, list]:
 def _unpack(rows: torch.Tensor, meta: list, tree: Any) -> Any:
     """Inverse of :func:`_pack` over ``rows (n_ranks, nbytes)``: each
     leaf's rank blocks concatenated along its leading axis."""
-    from repro_torch.core.worker import tree_map
-
     n = rows.shape[0]
     out, off = [], 0
     for dtype, shape, nb in meta:

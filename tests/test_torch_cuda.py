@@ -4,7 +4,9 @@ launch (no float atomics), also through ``edge_histogram``, K2
 ``round_step`` (also on a second launch) and K3 ``queue_ingest``
 bit-exact, floats compared as bit patterns, K4 ``weight_update``
 to rtol 1e-4 / atol 1e-5 (the reference's own tolerance) and bitwise
-equal to itself. Imports no JAX,
+equal to itself; the engines, chaos features and sharded ranks through
+them; and the LM stack and TMSN-SGD (a bf16 backward that repeats bit
+for bit, the engine equal to the oracle). Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -603,3 +605,62 @@ def test_cuda_pod_engine_four_ranks_share_the_card(cuda_device, tmp_path):
             assert r[f] == getattr(single, f), f
         assert 0 < r["messages_sent_dcn"] < r["messages_sent"]
         assert r["messages_sent"] == res[0]["messages_sent"]
+
+
+# ---------------------------------------------------------------------------
+# the LM stack and TMSN-SGD (no TPU kernel on this path: eager PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_lm(compute_dtype="float32", remat=False):
+    from repro_torch.models.config import ArchConfig
+
+    return ArchConfig(name="tiny-contract", arch_type="llama", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab=500, remat=remat, compute_dtype=compute_dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_backward_repeats_bit_for_bit(cuda_device):
+    """Loss and every gradient of a bf16 forward with remat are the same
+    bits on a second pass: no float atomics on the path (the embedding's
+    backward sorts its indices; the gold logit's gather writes each
+    address once)."""
+    from repro_torch.data.tokens import stream_tokens, synthetic_token_batch
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _tiny_lm("bfloat16", remat=True)
+    params = init_params(cfg, 0, cuda_device)
+    # repeated tokens, so the embedding's backward sums several rows into one
+    batch = synthetic_token_batch(stream_tokens(1, 0, (4, 64), 20, cuda_device))
+    runs = []
+    for _ in range(2):
+        leaves = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+        loss, _ = loss_fn(leaves, cfg, batch)
+        loss.backward()
+        runs.append([loss.detach()] + [a.grad for a in tree_leaves(leaves)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [0, 4])
+def test_cuda_sgd_engine_equals_oracle(cuda_device, capacity):
+    """TMSN-SGD on the card: the round engine (dense buffer, or the
+    sparse queues through K2/K3) and oracle_run, bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.engine import EngineConfig, TMSNEngine
+    from repro_torch.core.sgd_worker import lm_sgd_worker
+    from repro_torch.core.tmsn_sgd import TMSNSGDConfig, oracle_run
+    from repro_torch.optim import AdamWConfig
+
+    worker = lm_sgd_worker(_tiny_lm(), AdamWConfig(lr=1e-2), TMSNSGDConfig(local_steps=2, ema=0.8),
+                           batch_size=2, seq=16, device=cuda_device)
+    cfg = EngineConfig(n_workers=4, eps=0.0, max_rounds=6, delay_rounds=1, seed=0, fault_spec="",
+                       rounds_per_dispatch=1, inflight_capacity=capacity, control_plane="dense",
+                       gossip_mode="dense", spare_slots=0, publish_every_k=0, round_step_impl="pallas")
+    res = TMSNEngine(worker, cfg, device=cuda_device).run()
+    orc = oracle_run(worker, 4, 6, eps=0.0, seed=0)
+    assert np.asarray(res.final_certificates, np.float32).view(np.int32).tolist() == \
+        orc.certs.view(np.int32).tolist()
+    assert res.messages_accepted > 0 and np.all(np.diff(orc.history, axis=0) <= 0)

@@ -19,6 +19,12 @@ twin of its ``ShardableToyWorker``:
     and the collectives (bits kept, ``-0.0`` included);
   * batched Sparrow on the small_ref data, with kernels off and through
     the plain K1: certificates, history and models bit for bit;
+  * the reference's ``TestShardedSGDWorker`` (tests/test_worker_contract.py):
+    the TMSN-SGD worker on the flat mesh with dense gossip, gated gossip
+    at ``gossip_top_k=1`` and the sparse in-flight state, and on the pod
+    mesh at k = 1: certificates, history, adoptions and every worker's
+    final parameters bit for bit the single device's, and certificates
+    the oracle's (``oracle_run``);
   * the reference's ``TestPodMesh`` on a pod mesh of 2 pods built in the
     same world (``make_worker_mesh(n, pods=2)``: 2 pods of 2 ranks in the
     world of 4, 2 pods of 1 in the world of 2): at ``cross_pod_every_k=1``
@@ -379,6 +385,54 @@ def _pod_collectives(pod_mesh):
                 tier2=pod_mesh.collectives)
 
 
+# ---------------------------------------------------------------------------
+# the reference's TestShardedSGDWorker (tests/test_worker_contract.py:400-470)
+# ---------------------------------------------------------------------------
+
+SGD_W = 8
+#: name -> config kwargs; "sgd_pod" runs on the world's pod mesh
+SGD = {
+    "sgd_dense": dict(gossip_mode="dense"),
+    "sgd_gated": dict(gossip_mode="gated", gossip_top_k=1),
+    "sgd_sparse_inflight": dict(gossip_mode="dense", inflight_capacity=SGD_W),
+    "sgd_pod": dict(gossip_mode="dense", cross_pod_every_k=1, cross_pod_top_k=1),
+}
+
+
+def _sgd_worker():
+    """tests/test_worker_contract.py's ``_sgd_worker`` on the port."""
+    from repro_torch.core.sgd_worker import lm_sgd_worker
+    from repro_torch.core.tmsn_sgd import TMSNSGDConfig
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.optim import AdamWConfig
+
+    tiny = ArchConfig(name="tiny-contract", arch_type="llama", num_layers=1, d_model=16, num_heads=2,
+                      num_kv_heads=2, d_ff=32, vocab=64, remat=False, compute_dtype="float32")
+    return lm_sgd_worker(tiny, AdamWConfig(lr=1e-2), TMSNSGDConfig(local_steps=2, ema=0.8, width_coef=1.0),
+                         batch_size=2, seq=8, device=CPU)
+
+
+def _digest(params):
+    """Every leaf's bytes, in one hash: equal digests are equal bits."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _run_sgd(name, mesh=None):
+    cfg = _config(SGD_W, mesh, max_rounds=8, **SGD[name])
+    eng = teng.make_engine(_sgd_worker(), cfg, CPU) if mesh is None else teng.make_engine(_sgd_worker(), cfg)
+    res = eng.run()
+    return dict(certs=res.final_certificates, history=res.history, rounds=res.rounds,
+                models=[_digest(m) for m in res.final_models],
+                **{f: getattr(res, f) for f in COUNTERS})
+
+
 def _rank_program(mesh):
     pod_mesh = tmesh.make_worker_mesh(mesh.size, pods=PODS, device=CPU)
     out = {"toy": {name: _run_toy(name, mesh) for name in TOY}}
@@ -386,6 +440,7 @@ def _rank_program(mesh):
     out["pod"] = {name: _run_toy(name, pod_mesh, POD) for name in POD}
     out["pod_flat"] = {name: _run_toy(name, mesh, POD_FLAT) for name in POD_FLAT}
     out["pod_sparrow"] = _run_sparrow("sparrow_dense", pod_mesh)
+    out["sgd"] = {name: _run_sgd(name, pod_mesh if name == "sgd_pod" else mesh) for name in SGD}
     out["pod_mesh"] = dict(axis_names=pod_mesh.axis_names, shape=pod_mesh.shape, pod=pod_mesh.pod,
                            **_pod_collectives(pod_mesh))
     out["errors"] = _errors(mesh, pod_mesh)
@@ -406,9 +461,13 @@ def single():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
+        from repro_torch.core.tmsn_sgd import oracle_run
+
         return {"toy": {name: _run_toy(name) for name in TOY},
                 "sparrow": {name: _run_sparrow(name) for name in SPARROW},
-                "pod_flat": {name: _run_toy(name, None, POD_FLAT) for name in POD_FLAT}}
+                "pod_flat": {name: _run_toy(name, None, POD_FLAT) for name in POD_FLAT},
+                "sgd": _run_sgd("sgd_dense"),
+                "sgd_oracle": oracle_run(_sgd_worker(), SGD_W, 8, eps=0.0, seed=0).certs}
     finally:
         torch.set_num_threads(threads)
 
@@ -443,6 +502,24 @@ def test_sparrow_matches_single_device(worlds, single, n, name):
 
 
 @pytest.mark.parametrize("n", WORLDS)
+@pytest.mark.parametrize("name", list(SGD))
+def test_sgd_matches_single_device_and_oracle(worlds, single, n, name):
+    """Every sharded leg of the reference's TestShardedSGDWorker, bit for
+    bit: the single-device engine's certificates, history, adoptions and
+    final parameters, and the oracle's certificates."""
+    got, want = worlds[n][0]["sgd"][name], single["sgd"]
+    for f in ("certs", "history", "rounds", "messages_accepted", "models"):
+        assert got[f] == want[f], f
+    assert np.asarray(got["certs"], np.float32).view(np.int32).tolist() == \
+        single["sgd_oracle"].view(np.int32).tolist()
+    assert got["messages_accepted"] > 0 and got["messages_evicted"] == 0
+    if name in ("sgd_dense", "sgd_sparse_inflight"):
+        assert got["messages_sent"] == want["messages_sent"]
+    if name == "sgd_pod":
+        assert 0 < got["messages_sent_dcn"] <= got["messages_sent"]
+
+
+@pytest.mark.parametrize("n", WORLDS)
 def test_every_rank_returns_the_same_result(worlds, n):
     res = worlds[n]
     for r in range(1, n):
@@ -450,6 +527,7 @@ def test_every_rank_returns_the_same_result(worlds, n):
         assert res[r]["sparrow"] == res[0]["sparrow"]
         assert res[r]["pod"] == res[0]["pod"]
         assert res[r]["pod_sparrow"] == res[0]["pod_sparrow"]
+        assert res[r]["sgd"] == res[0]["sgd"]
 
 
 @pytest.mark.parametrize("n", WORLDS)
