@@ -111,7 +111,38 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              2 x 128 prefill and 16 cached decode steps at scalar and at
              per-row pos (bit for bit alike), each position's logits within
              LM_BF16_TOL of the full forward. No TPU kernel lies on this
-             path, so the kernels line is unchanged.
+             path, so the kernels line is unchanged;
+  serve_small_ref  the continuous-batching server (launch/serving.py) on
+             reduced(yi_9b) in float32, built on the CPU from a seed: a run
+             with continuous admission (10 requests over 4 slots) and one
+             adoption on the card against the same run on the CPU, tokens,
+             versions and counting metrics equal; prefill and 4 in-place
+             decode steps' logits at rtol 1e-4 / atol 1e-5;
+  serve      the server on Yi-9B at full width AND depth (48 layers, bf16
+             params and compute: launch/steps.py::dryrun_cfg, 8 829 407 232
+             parameters) on one card: a no-publish serve() (batch 8, prompt
+             1024, 32 tokens) equal token for token to the legacy loop
+             (batched prefill, rebuffer_caches, the scalar-pos serve step);
+             a server of 8 slots x (1024 + 128) whose signature counts after
+             warmup are prefill 2, decode 1, insert 1; row independence (a
+             request's tokens beside other prompts, and admitted into a
+             retired row against a row of zeros, bit for bit); 24 requests
+             (max_new 16 + 16 (i % 8)) without adoption, then with two
+             snapshots (inits from seeds 1 and 2, in host memory) published
+             at decode steps 20 and 60: 2 adoptions, none dropped, no new
+             signature, the parameters written in place, tokens changed.
+             Prints every run() metric, the memory_reserved growth after
+             warmup, batched and single-row prefill ms (CUDA events), and 20
+             profiled decode steps' wall and device ms, idle share and bytes
+             bound (parameters and the K/V read once);
+  serve_live TMSN-SGD at lm_sgd's shape (LIVE_ROUNDS rounds, publisher at
+             every improvement) in a thread, and a 4-slot server of the same
+             model shape on the same card serving LIVE_REQUESTS requests from
+             the adoption slot, paced as examples/serve_live.py paces it: at
+             least one adoption, none dropped, no new signature, the served
+             certificate one that was published, peak memory below
+             LIVE_PEAK_LIMIT. The serving phases launch none of K1-K4
+             (launches_serve in the kernels line).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -681,6 +712,359 @@ def lm_sgd_phase() -> None:
     if not (bound_ok and torch.isfinite(dec).all()):
         raise AssertionError(f"lm_sgd: cached decode differs from the full forward by {float(err.max()):.4g}")
     log(f"phase lm_sgd ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# the serving tier (phases serve_small_ref, serve and serve_live)
+# ---------------------------------------------------------------------------
+
+#: serve: Yi-9B at full width and depth, bf16 (the reference's dryrun_cfg);
+#: the server's shape, its load and the steps at which snapshots publish
+SERVE_SLOTS, SERVE_PROMPT, SERVE_MAX_NEW = 8, 1024, 128
+SERVE_REQUESTS, SERVE_GEN, SERVE_ADOPT_AT = 24, 32, (20, 60)
+#: decode steps under the profiler for the device idle share
+SERVE_PROFILED_STEPS = 20
+#: serve_live: the engine's rounds, the example's pace (s a decode step)
+#: and request stream, and the memory the phase must stay below
+LIVE_ROUNDS, LIVE_PACE_S, LIVE_REQUESTS, LIVE_PEAK_LIMIT = 16, 0.05, 48, 60e9
+
+
+def _tokens_of(results) -> list:
+    return [r.tokens.tolist() for r in results]
+
+
+def serve_small_ref_phase() -> None:
+    """reduced(yi_9b) in float32, built on the CPU from a seed: a
+    ContinuousServer run with admission and one adoption on the card
+    against the same run on the CPU (every request's tokens and versions,
+    the counting metrics), and the prefill and 4 in-place decode steps'
+    logits at rtol 1e-4 / atol 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig, rebuffer_caches
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = reduced(get_config(LM_ARCH))
+    params_cpu, snap_cpu = init_params(cfg, SEED, "cpu"), init_params(cfg, SEED + 1, "cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (10, 16), dtype=np.int32)
+    scfg = ServingConfig(slots=4, prompt_len=16, max_new=8, seed=SEED)
+    counting = ("requests_completed", "dropped_requests", "decode_steps", "decode_tokens", "adoptions",
+                "adoption_steps", "recompiles")
+    out = {}
+    for name in ("cpu", "cuda"):
+        server = ContinuousServer(cfg, scfg, tree_map(lambda a: a.to(name, copy=True), params_cpu), device=name)
+        server.warmup()
+        slot = AdoptionSlot()
+
+        def hook(_, step, slot=slot):
+            if step == 3:
+                slot.publish(snap_cpu, cert=1.0, round=3)
+
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=2 + i % 7) for i in range(10)]
+        results, m = server.run(reqs, slot=slot, step_hook=hook)
+        params = tree_map(lambda a: a.to(name), params_cpu)
+        with torch.no_grad():
+            tokens = torch.from_numpy(prompts[:2]).to(name)
+            logits, pre = prefill(params, cfg, {"tokens": tokens})
+            caches = rebuffer_caches(cfg, pre, 2, 24, 16, 0)
+            dec = []
+            for i in range(4):
+                pos = torch.full((2,), 16 + i, dtype=torch.int32, device=name)
+                lg, caches = decode_step(params, cfg, torch.from_numpy(prompts[2:4, i:i + 1]).to(name), caches,
+                                         pos, in_place=True)
+                dec.append(lg)
+        out[name] = (results, m, [logits] + dec)
+    (cres, cm, clog), (gres, gm, glog) = out["cpu"], out["cuda"]
+    err = max(float((g.cpu() - c).abs().max()) for g, c in zip(glog, clog))
+    log(f"phase serve_small_ref requests={len(gres)} decode_steps={gm['decode_steps']} adoptions={gm['adoptions']} "
+        f"adoption_steps={gm['adoption_steps']} recompiles={gm['recompiles']} dropped={gm['dropped_requests']} "
+        f"tokens_equal={_tokens_of(gres) == _tokens_of(cres)} logits_max_abs_err={err:.3g}")
+    if _tokens_of(gres) != _tokens_of(cres) or [r.versions for r in gres] != [r.versions for r in cres]:
+        raise AssertionError(f"serve_small_ref: card tokens {_tokens_of(gres)} != cpu {_tokens_of(cres)}")
+    if {k: gm[k] for k in counting} != {k: cm[k] for k in counting}:
+        raise AssertionError(f"serve_small_ref: card metrics {gm} != cpu {cm}")
+    if not (gm["adoptions"] == 1 and gm["recompiles"] == 0 and gm["dropped_requests"] == 0):
+        raise AssertionError(f"serve_small_ref: {gm}")
+    bad = [i for i, (g, c) in enumerate(zip(glog, clog)) if not torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-5)]
+    if bad:
+        raise AssertionError(f"serve_small_ref: logits of steps {bad} differ beyond rtol 1e-4 / atol 1e-5")
+    log(f"phase serve_small_ref ok seconds={time.perf_counter() - t0:.3f}")
+
+
+def serve_phase() -> None:
+    """The continuous-batching server on Yi-9B at full width and depth in
+    bf16 (see the module doc)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig, rebuffer_caches
+    from repro_torch.launch.steps import dryrun_cfg, make_prefill_step, make_serve_step
+    from repro_torch.models import init_params, param_count
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dryrun_cfg(get_config(LM_ARCH))
+    B, P = SERVE_SLOTS, SERVE_PROMPT
+    kv_token_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.hd() * 2  # K and V, bf16
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_REQUESTS + B, P), dtype=np.int32)
+
+    def batch(rows):
+        toks = torch.from_numpy(prompts[rows]).to("cuda")
+        return {"tokens": toks, "labels": toks, "mask": torch.ones(toks.shape, device="cuda")}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # two snapshots to adopt: inits from seeds 1 and 2, drawn on the card
+    # and copied to host memory (pageable, as the engine's publisher copies)
+    t0 = time.perf_counter()
+    snaps = {}
+    for cert, (step, seed) in zip((2.0, 1.0), zip(SERVE_ADOPT_AT, (SEED + 1, SEED + 2))):
+        p = init_params(cfg, seed, "cuda")
+        snaps[step] = (tree_map(lambda a: a.to("cpu"), p), cert)
+        del p
+    torch.cuda.empty_cache()
+    snap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    param_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    log(f"phase serve model arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} params={n_params} "
+        f"param_bytes={param_bytes} dtype={cfg.param_dtype}/{cfg.compute_dtype} init_s={time.perf_counter() - t0:.3f} "
+        f"snapshots_to_host_s={snap_s:.3f} kv_bytes_per_token={kv_token_bytes}")
+
+    # ---- a no-publish serve() against the legacy scalar-pos loop
+    out = serve(cfg, B, P, SERVE_GEN, params=params, prompts=prompts[:B], device="cuda")
+    tok, pre = make_prefill_step(cfg)(params, batch(slice(0, B)))
+    caches = rebuffer_caches(cfg, pre, B, P + SERVE_GEN, P, 0)
+    del pre
+    step, legacy = make_serve_step(cfg), [tok]
+    for i in range(SERVE_GEN - 1):
+        tok, caches = step(params, tok, caches, P + i)
+        legacy.append(tok)
+    legacy = torch.cat(legacy, 1).cpu().numpy()
+    del caches, tok
+    gc.collect()
+    same = np.array_equal(out["generated"], legacy)
+    log(f"phase serve serve_vs_legacy batch={B} prompt={P} gen={SERVE_GEN} equal={same} "
+        f"compile_s={out['compile_s']:.3f} prefill_s={out['prefill_s']:.4f} decode_s={out['decode_s']:.4f} "
+        f"tok_per_s={out['tok_per_s']:.1f}")
+    if not same:
+        raise AssertionError("serve: serve() differs from the legacy scalar-pos loop")
+    del out
+
+    # ---- the server at (SERVE_SLOTS, SERVE_PROMPT + SERVE_MAX_NEW)
+    scfg = ServingConfig(slots=B, prompt_len=P, max_new=SERVE_MAX_NEW, seed=SEED)
+    server = ContinuousServer(cfg, scfg, params, device="cuda")
+    warm_s = server.warmup()
+    counts = server.compile_counts()
+    torch.cuda.synchronize()
+    reserved_warm = torch.cuda.memory_reserved()
+    log(f"phase serve warmup_s={warm_s:.3f} compile_counts={json.dumps(counts)} "
+        f"memory_reserved={reserved_warm} max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if counts != {"prefill": 2, "decode": 1, "insert": 1}:
+        raise AssertionError(f"serve: signatures after warmup {counts}")
+
+    def reqs(rows, max_new):
+        return [Request(rid=i, prompt=prompts[r], max_new=m) for i, (r, m) in enumerate(zip(rows, max_new))]
+
+    # row independence: row 0's request beside other prompts; a request
+    # admitted into a retired row (stale K/V beyond its prefix) and into
+    # a row that holds zeros there
+    g = SERVE_GEN
+    t0 = time.perf_counter()
+    a, _ = server.run(reqs(range(B), [g] * B))
+    b, _ = server.run(reqs([0] + list(range(B, 2 * B - 1)), [g] * B))
+    late = 2 * B - 1
+    stale, _ = server.run(reqs(list(range(B)) + [late], [24] + [2 * g] * (B - 1) + [g]))
+    fresh, _ = server.run(reqs(list(range(B)) + [late], [1] + [2 * g] * (B - 1) + [g]))
+    rows_ok = np.array_equal(a[0].tokens, b[0].tokens) and not np.array_equal(a[1].tokens, b[1].tokens)
+    stale_ok = np.array_equal(stale[B].tokens, fresh[B].tokens)
+    log(f"phase serve row_independence row0_equal={rows_ok} stale_row_admission_equal={stale_ok} "
+        f"seconds={time.perf_counter() - t0:.3f}")
+    if not (rows_ok and stale_ok):
+        raise AssertionError(f"serve: row independence {rows_ok}, stale-row admission {stale_ok}")
+
+    # ---- the load: without adoption, then with two adoptions mid-run
+    load_rows = list(range(SERVE_REQUESTS))
+    load_new = [16 + 16 * (i % 8) for i in range(SERVE_REQUESTS)]
+    base, base_m = server.run(reqs(load_rows, load_new))
+    ptrs = [x.data_ptr() for x in tree_leaves(server.params)]
+    slot = AdoptionSlot()
+
+    def hook(_, step):
+        if step in snaps:
+            slot.publish(snaps[step][0], cert=snaps[step][1], round=step)
+
+    results, m = server.run(reqs(load_rows, load_new), slot=slot, step_hook=hook)
+    torch.cuda.synchronize()
+    reserved_end = torch.cuda.memory_reserved()
+    swapped = [x.data_ptr() for x in tree_leaves(server.params)] == ptrs
+    changed = sum(not np.array_equal(x.tokens, y.tokens) for x, y in zip(results, base))
+    keys = ("requests_completed", "dropped_requests", "req_per_s", "latency_p50_s", "latency_p99_s",
+            "decode_steps", "decode_tokens", "prefill_s", "decode_s", "decode_tok_per_s", "step_p50_ms",
+            "step_p99_ms", "adoptions", "adoption_steps", "adoption_blip_p99_ms", "steady_step_p99_ms",
+            "recompiles", "wall_s")
+    log(f"phase serve load_no_adoption {json.dumps({k: base_m[k] for k in keys})}")
+    log(f"phase serve load_adoption {json.dumps({k: m[k] for k in keys})} requests_changed={changed} "
+        f"params_swapped_in_place={swapped} memory_reserved_growth={reserved_end - reserved_warm}")
+    if not (m["adoptions"] == 2 and m["dropped_requests"] == 0 and m["recompiles"] == 0 and swapped):
+        raise AssertionError(f"serve: adoptions {m['adoptions']}, dropped {m['dropped_requests']}, "
+                             f"recompiles {m['recompiles']}, in place {swapped}")
+    if changed == 0 or base_m["recompiles"] != 0:
+        raise AssertionError(f"serve: {changed} requests changed under adoption")
+    del snaps, slot, results, base
+    gc.collect()
+
+    # ---- prefill times (batched and single-row) and a profiled decode window
+    prefill_fn = server._prefill_fn
+    with torch.no_grad():
+        bb, b1 = batch(slice(0, B)), batch(slice(0, 1))
+        prefill_ms = event_ms(lambda: prefill_fn(server.params, bb))
+        prefill1_ms = event_ms(lambda: prefill_fn(server.params, b1))
+        tok, pre = prefill_fn(server.params, bb)
+        caches = rebuffer_caches(cfg, pre, B, P + SERVE_MAX_NEW, P, 0)
+        del pre
+        decode = server._decode_fn
+        pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+        tok, caches = decode(server.params, tok, caches, pos, None)
+        tok.cpu()
+
+        def window(first: int) -> float:
+            """SERVE_PROFILED_STEPS decode steps from position ``first``,
+            each ending in the server's host sync; wall ms a step."""
+            nonlocal tok, caches
+            t0 = time.perf_counter()
+            for i in range(SERVE_PROFILED_STEPS):
+                pos = torch.full((B,), first + i, dtype=torch.int32, device="cuda")
+                tok, caches = decode(server.params, tok, caches, pos, None)
+                tok.cpu()
+            return (time.perf_counter() - t0) * 1e3 / SERVE_PROFILED_STEPS
+
+        # the wall without the profiler (its own host cost would count as
+        # idle), then the same work under it for the device time
+        wall_ms = window(P + 1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_wall_ms = window(P + 1 + SERVE_PROFILED_STEPS)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / SERVE_PROFILED_STEPS
+    device_ops = sum(e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")) / SERVE_PROFILED_STEPS
+    # a decode step's least bytes: every parameter read once and this
+    # window's K/V (positions 0..pos of every row, every layer) read once
+    kv_read = sum(B * (P + 2 + SERVE_PROFILED_STEPS + i) * kv_token_bytes
+                  for i in range(SERVE_PROFILED_STEPS)) / SERVE_PROFILED_STEPS
+    bound_ms = (param_bytes + kv_read) / HBM_BYTES_PER_S * 1e3
+    # products of a prefill: every weight but the embedding and the head at
+    # every position, the head at the last, and attention's two (full P x P)
+    vd = cfg.padded_vocab() * cfg.d_model
+    prefill_flop = (2 * (n_params - 2 * vd) * B * P + 2 * vd * B
+                    + 4 * B * P * P * cfg.num_heads * cfg.hd() * cfg.num_layers)
+    log(f"phase serve prefill_ms batched={prefill_ms:.3f} ({B}x{P}; {prefill_flop / 1e12:.1f} TFLOP of products, "
+        f"{prefill_flop / (prefill_ms / 1e3) / 1e12:.1f} TFLOP/s) single_row={prefill1_ms:.3f}")
+    log(f"phase serve decode_profile steps={SERVE_PROFILED_STEPS} wall_ms_per_step={wall_ms:.3f} "
+        f"wall_ms_per_step_profiled={prof_wall_ms:.3f} device_ms_per_step={busy:.3f} "
+        f"device_idle_share={1 - busy / wall_ms:.4f} "
+        f"device_ops_per_step={device_ops:.0f} bytes_bound_ms={bound_ms:.3f} "
+        f"(params {param_bytes} B + K/V {kv_read:.0f} B at {HBM_BYTES_PER_S:.3g} B/s) "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del caches, tok, server, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase serve ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+def serve_live_phase() -> None:
+    """TMSN-SGD trains Yi-9B at full width (1 layer, f32 params) in a
+    thread and publishes every improvement; a server on the same card
+    serves the same model shape from the slot, paced as
+    examples/serve_live.py paces it."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import TMSNEngine, TMSNSGDConfig, lm_sgd_worker
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+
+    class RecordingSlot(AdoptionSlot):
+        def __init__(self):
+            super().__init__()
+            self.certs = []
+
+        def publish(self, params, cert, round=0):
+            self.certs.append(float(cert))
+            return super().publish(params, cert, round)
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    worker = lm_sgd_worker(cfg, AdamWConfig(lr=3e-4), TMSNSGDConfig(local_steps=LM_K), batch_size=LM_BATCH,
+                           seq=LM_SEQ, device="cuda")
+    engine = TMSNEngine(worker, dataclasses.replace(engine_config(LM_W, LIVE_ROUNDS, False), publish_every_k=1),
+                        device="cuda")
+    slot = RecordingSlot()
+    engine.attach_publisher(slot)
+    server = ContinuousServer(cfg, ServingConfig(slots=4, prompt_len=8, max_new=12, seed=SEED),
+                              init_params(cfg, 7, "cuda"), device="cuda")
+    warm_s = server.warmup()
+    failed = []
+
+    def train():
+        try:
+            engine.run()
+        except Exception as e:  # noqa: BLE001 — raised below, in the main thread
+            failed.append(e)
+
+    trainer = threading.Thread(target=train, name="tmsn-trainer")
+    trainer.start()
+    try:
+        t0 = time.perf_counter()
+        while slot.version == 0 and not failed and time.perf_counter() - t0 < 300:
+            time.sleep(0.01)
+        first_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 8).astype(np.int32), max_new=4 + i % 9)
+                for i in range(LIVE_REQUESTS)]
+        results, m = server.run(reqs, slot=slot, step_hook=lambda srv, step: time.sleep(LIVE_PACE_S))
+    finally:
+        trainer.join(timeout=600)
+    if failed or trainer.is_alive():
+        raise AssertionError(f"serve_live: the trainer failed ({failed}) or hung")
+    peak = torch.cuda.max_memory_allocated()
+    multi = sum(1 for r in results if len(r.versions) > 1)
+    log(f"phase serve_live rounds={LIVE_ROUNDS} publishes={slot.publishes} published_certs={slot.certs} "
+        f"first_publish_s={first_s:.3f} warmup_s={warm_s:.3f} requests={m['requests_completed']} "
+        f"dropped={m['dropped_requests']} adoptions={m['adoptions']} adoption_steps={m['adoption_steps']} "
+        f"recompiles={m['recompiles']} served_cert={server.served_cert} multi_version_requests={multi} "
+        f"step_p50_ms={m['step_p50_ms']:.3f} adoption_blip_p99_ms={m['adoption_blip_p99_ms']:.3f} "
+        f"stale_cert_gap_mean={m['stale_cert_gap_mean']:.6g} max_memory_allocated={peak}")
+    if not (m["adoptions"] >= 1 and m["dropped_requests"] == 0 and m["recompiles"] == 0):
+        raise AssertionError(f"serve_live: {m}")
+    if server.served_cert not in slot.certs or peak >= LIVE_PEAK_LIMIT:
+        raise AssertionError(f"serve_live: served cert {server.served_cert} not published {slot.certs}, "
+                             f"or peak {peak} B over {LIVE_PEAK_LIMIT:.3g}")
+    del engine, worker, server, slot
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase serve_live ok seconds={time.perf_counter() - t_phase:.3f}")
 
 
 def main() -> int:
@@ -1721,6 +2105,18 @@ def main() -> int:
 
     # ---------------------------------------------------------------- lm_sgd
     lm_sgd_phase()
+
+    # ------------------------------------------------------- serve_small_ref
+    ops.reset_launches()
+    serve_small_ref_phase()
+    # ----------------------------------------------------------------- serve
+    serve_phase()
+    # ------------------------------------------------------------ serve_live
+    serve_live_phase()
+    serve_launches = dict(ops.LAUNCHES)
+    log(f"phase serving launches={json.dumps(serve_launches)}")
+    for k, rec in records.items():
+        rec["launches_serve"] = serve_launches[k]
 
     log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

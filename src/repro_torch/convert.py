@@ -27,13 +27,32 @@ from repro_torch.core.worker import tree_map
 
 
 def tensor(a: Any, device) -> torch.Tensor:
-    """numpy array (or scalar) -> tensor on ``device``, same dtype."""
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """numpy array (or scalar) -> tensor on ``device``, same dtype. A
+    bfloat16 array (ml_dtypes' type, which torch cannot read) goes
+    through a 16-bit integer view: the same bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _numpy(a: torch.Tensor) -> np.ndarray:
+    a = a.detach().cpu()
+    if a.dtype != torch.bfloat16:
+        return a.numpy()
+    # numpy knows bfloat16 only once ml_dtypes is loaded (jax loads it);
+    # the port never imports it
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError as e:
+        raise TypeError("a bfloat16 tensor needs numpy's bfloat16 type (import ml_dtypes first)") from e
+    return a.view(torch.int16).numpy().view(bf16)
 
 
 def to_numpy(tree: Any) -> Any:
-    """Any pytree of the port's tensors -> the same pytree of numpy arrays."""
-    return tree_map(lambda a: a.detach().cpu().numpy(), tree)
+    """Any pytree of the port's tensors -> the same pytree of numpy arrays
+    (bfloat16 leaves bit for bit, as :func:`tensor` takes them)."""
+    return tree_map(_numpy, tree)
 
 
 def stump_model_from_numpy(model: Any, device) -> StumpModel:

@@ -869,7 +869,7 @@ class TMSNEngine:
         chunk boundary (a multiple of ``rounds_per_dispatch``, the last
         round, or a target stop) at or after every ``publish_every_k``-th
         round, :meth:`run` publishes a host copy of the best live
-        worker's model when its certificate improved by more than
+        worker's model (CPU tensors, its dtypes and bits kept) when its certificate improved by more than
         ``publish_eps`` since the last publish, and once more at the end."""
         if self.config.publish_every_k < 1:
             raise ValueError(
@@ -896,7 +896,8 @@ class TMSNEngine:
             return
         if best_cert >= self._published_cert - float(self.config.publish_eps):
             return
-        params = tree_map(lambda a: a.detach().cpu().numpy().copy(), self._export_row(state, best))
+        # a host copy as CPU tensors: every dtype (bfloat16 included) and every bit
+        params = tree_map(lambda a: a.detach().to("cpu", copy=True), self._export_row(state, best))
         self._publisher.publish(params, cert=best_cert, round=rounds)
         self._published_cert = best_cert
 

@@ -1,2 +1,4 @@
-"""Serving side of the port; counterpart of ``src/repro/launch`` (only the
-adoption slot so far)."""
+"""Serving and mesh side of the port; counterpart of ``src/repro/launch``:
+``steps`` (step factories and input specs), ``serving`` (the adoption
+slot and the continuous-batching server), ``serve`` (the batched entry point
+and its CLI) and ``mesh`` (the workers mesh)."""

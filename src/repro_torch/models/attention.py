@@ -102,9 +102,13 @@ def gqa_decode(
     pos,  # () or (b,) int32 — current write position(s)
     cfg: ArchConfig,
     window: int | None = None,
+    in_place: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token decode against a KV cache. Returns (out, k', v'); the
-    caches come back as new tensors (the inputs are not written)."""
+    """One-token decode against a KV cache. Returns (out, k', v'): by
+    default new tensors (the inputs are not written); with ``in_place``
+    the new entries are written into ``cache_k``/``cache_v`` themselves,
+    which come back (the counterpart of a donated cache). The bits are
+    the same either way."""
     b = x.shape[0]
     hd = cfg.hd()
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -121,8 +125,12 @@ def gqa_decode(
     # RoPE phases so the ring is transparent to attention
     write_pos = torch.remainder(pos_b, S).long()
     rows = torch.arange(b, device=x.device)
-    cache_k = cache_k.index_put((rows, write_pos), k_new[:, 0].to(cache_k.dtype))
-    cache_v = cache_v.index_put((rows, write_pos), v_new[:, 0].to(cache_v.dtype))
+    if in_place:
+        cache_k.index_put_((rows, write_pos), k_new[:, 0].to(cache_k.dtype))
+        cache_v.index_put_((rows, write_pos), v_new[:, 0].to(cache_v.dtype))
+    else:
+        cache_k = cache_k.index_put((rows, write_pos), k_new[:, 0].to(cache_k.dtype))
+        cache_v = cache_v.index_put((rows, write_pos), v_new[:, 0].to(cache_v.dtype))
     kpos = ring_positions(pos_b, S)
     mask = _causal_window_mask(positions, kpos, window) & (kpos.unsqueeze(1) >= 0)
     qg = q.reshape(b, 1, K, G, hd)

@@ -164,10 +164,13 @@ def prefill(params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, list]:
     return _logits(params, cfg, x[:, -1:, :]), caches
 
 
-def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches: list, pos) -> tuple[torch.Tensor, list]:
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches: list, pos,
+                in_place: bool = False) -> tuple[torch.Tensor, list]:
     """One-token decode. token (b, 1) int; pos is the cache write index —
     a () int for lockstep batches, or a (b,) int tensor for continuous
-    batching (each row at its own depth)."""
+    batching (each row at its own depth). With ``in_place`` the caches
+    are written where they lie and come back as given (the reference's
+    server donates them); by default they come back as new tensors."""
     x = _embed(params, cfg, token)
-    x, caches = decode_stack(params["decoder"], layer_segments(cfg), cfg, x, caches, pos)
+    x, caches = decode_stack(params["decoder"], layer_segments(cfg), cfg, x, caches, pos, in_place=in_place)
     return _logits(params, cfg, x), caches

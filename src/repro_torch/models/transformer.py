@@ -60,11 +60,12 @@ def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor,
     return x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
 
 
-def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor, cache: tuple, pos):
+def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor, cache: tuple, pos,
+                       in_place: bool = False):
     check_dense(spec, cfg)
     ck, cv = cache
     h, ck, cv = attn.gqa_decode(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), ck, cv, pos, cfg,
-                                window=spec.window)
+                                window=spec.window, in_place=in_place)
     x = x + h
     return x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), (ck, cv)
 
@@ -140,7 +141,12 @@ def decode_stack(
     x: torch.Tensor,
     caches: list,
     pos,
+    in_place: bool = False,
 ):
+    """One-token pass over all segments. By default the caches come back
+    re-stacked as new tensors; with ``in_place`` each repeat's entry is
+    written into its view of the stacked buffers and ``caches`` itself
+    comes back (no copy of any cache; the same bits)."""
     new_caches = []
     for (unit, reps), seg_params, seg_cache in zip(segments, params_segments, caches):
         per_pos = [_unstack(p, reps) for p in seg_params]
@@ -148,7 +154,11 @@ def decode_stack(
         for r in range(reps):
             for li, spec in enumerate(unit):
                 ck, cv = seg_cache[li]
-                x, outs[li][r] = apply_layer_decode(per_pos[li][r], spec, cfg, x, (ck[r], cv[r]), pos)
+                x, outs[li][r] = apply_layer_decode(per_pos[li][r], spec, cfg, x, (ck[r], cv[r]), pos,
+                                                    in_place=in_place)
+        if in_place:
+            new_caches.append(seg_cache)
+            continue
         new_caches.append(tuple(
             tuple(torch.stack([c[j] for c in outs[li]]) for j in range(2)) for li in range(len(unit))
         ))

@@ -469,8 +469,10 @@ def test_published_sequence_matches_reference(rpd, every_k, target):
     for (_, _, tp), (_, _, jp) in zip(tlog, jlog):
         assert tp.keys() == jp.keys()
         for k in tp:
-            assert isinstance(tp[k], np.ndarray) and tp[k].dtype == np.asarray(jp[k]).dtype
-            np.testing.assert_array_equal(tp[k], np.asarray(jp[k]))
+            # a host copy: CPU tensors of the reference's dtype and values
+            assert isinstance(tp[k], torch.Tensor) and tp[k].device.type == "cpu"
+            assert tp[k].numpy().dtype == np.asarray(jp[k]).dtype
+            np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
     rounds = [e[0] for e in tlog]
     assert all(r % rpd == 0 or r == tres.rounds for r in rounds)
     certs = [e[1] for e in tlog]
@@ -487,12 +489,12 @@ def test_publisher_snapshot_is_a_host_copy():
     eng.attach_publisher(slot)
     eng.run()
     first = slot.acquire()
-    kept = {k: v.copy() for k, v in first.params.items()}
+    kept = {k: v.clone() for k, v in first.params.items()}
     n = slot.publishes
     eng.run()
     assert slot.publishes == 2 * n
     for k, v in kept.items():
-        np.testing.assert_array_equal(first.params[k], v)
+        assert torch.equal(first.params[k], v)
     assert slot.acquire().cert == first.cert == min(eng.run().final_certificates)
 
 

@@ -6,7 +6,9 @@ bit-exact, floats compared as bit patterns, K4 ``weight_update``
 to rtol 1e-4 / atol 1e-5 (the reference's own tolerance) and bitwise
 equal to itself; the engines, chaos features and sharded ranks through
 them; and the LM stack and TMSN-SGD (a bf16 backward that repeats bit
-for bit, the engine equal to the oracle). Imports no JAX,
+for bit, the engine equal to the oracle), and the serving tier (in-place
+decode bit for bit the out-of-place one, a server run with admission
+and adoption equal to the CPU's). Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -664,3 +666,71 @@ def test_cuda_sgd_engine_equals_oracle(cuda_device, capacity):
     assert np.asarray(res.final_certificates, np.float32).view(np.int32).tolist() == \
         orc.certs.view(np.int32).tolist()
     assert res.messages_accepted > 0 and np.all(np.diff(orc.history, axis=0) <= 0)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier (no TPU kernel on this path: eager PyTorch)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_in_place_decode_equals_out_of_place(cuda_device, compute_dtype):
+    """The server's in-place cached decode gives the out-of-place path's
+    bits on the card (logits and caches), and copies no cache."""
+    from repro_torch.launch.serving import rebuffer_caches
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _tiny_lm(compute_dtype)
+    params = init_params(cfg, 0, cuda_device)
+    toks = torch.randint(0, cfg.vocab, (3, 12), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        _, pre = prefill(params, cfg, {"tokens": toks})
+        a = rebuffer_caches(cfg, pre, 3, 24, 12, 0)
+        b = tree_map(torch.clone, a)
+        ptrs = [x.data_ptr() for x in tree_leaves(b)]
+        tok = toks[:, -1:]
+        for i in range(8):
+            pos = torch.full((3,), 12 + i, dtype=torch.int32, device=cuda_device)
+            la, a = decode_step(params, cfg, tok, a, pos)
+            lb, b = decode_step(params, cfg, tok, b, pos, in_place=True)
+            assert torch.equal(la, lb)
+            tok = la[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    assert [x.data_ptr() for x in tree_leaves(b)] == ptrs
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.cuda
+def test_cuda_server_run_matches_cpu(cuda_device):
+    """A ContinuousServer run with continuous admission and two adoptions
+    on the card gives the CPU's tokens, versions and counts; adoption
+    writes into the server's own tensors."""
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _tiny_lm()
+    params = init_params(cfg, 0, "cpu")
+    snaps = {2: init_params(cfg, 1, "cpu"), 5: init_params(cfg, 2, "cpu")}
+    ps = np.random.default_rng(0).integers(0, cfg.vocab, (7, 8)).astype(np.int32)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        # a copy each: the CPU server adopts into the tensors it is given
+        server = ContinuousServer(cfg, ServingConfig(slots=3, prompt_len=8, max_new=10),
+                                  tree_map(torch.clone, params), device=dev)
+        server.warmup()
+        ptrs = [x.data_ptr() for x in tree_leaves(server.params)]
+        slot = AdoptionSlot()
+
+        def hook(_, step, slot=slot):
+            if step in snaps:
+                slot.publish(snaps[step], cert=1.0 / step)
+
+        res, m = server.run([Request(rid=i, prompt=ps[i], max_new=2 + (i * 3) % 9) for i in range(7)],
+                            slot=slot, step_hook=hook)
+        assert m["adoptions"] == 2 and m["recompiles"] == 0 and m["dropped_requests"] == 0
+        if dev != "cpu":
+            assert [x.data_ptr() for x in tree_leaves(server.params)] == ptrs
+        runs.append(([r.tokens.tolist() for r in res], [r.versions for r in res], m["decode_steps"]))
+    assert runs[0] == runs[1]
