@@ -142,7 +142,41 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              least one adoption, none dropped, no new signature, the served
              certificate one that was published, peak memory below
              LIVE_PEAK_LIMIT. The serving phases launch none of K1-K4
-             (launches_serve in the kernels line).
+             (launches_serve in the kernels line);
+  families_small_ref  reduced() of each decoder-only family (deepseek_v3_671b:
+             MLA, MoE with a shared expert, MTP; grok1_314b: top-2 MoE;
+             gemma3_12b: 1 local : 1 global; mamba2_1p3b: SSD; zamba2_1p2b:
+             SSD and the shared attention block) in float32, built on the CPU
+             from a seed: loss, every gradient, prefill logits and 16 greedy
+             tokens on the card twice, the same bits (the MoE scatter and the
+             SSD cumsum), and against the CPU (tokens equal, values within
+             rtol 1e-4 / atol 1e-5 of each output's scale); a 16-step
+             teacher-forced decode against the full forward at 2e-2;
+  serve_mamba2  the server on Mamba2-1.3B at full width AND depth (48 SSD
+             layers, d_model 2048, state 128; bf16 params and compute,
+             1 446 714 368 parameters), 8 slots x (1024 + 128): the serve
+             phase's load of 24 requests without adoption and then with two
+             snapshots published at steps 20 and 60; every run() metric,
+             batched and single-row prefill ms, 20 profiled decode steps' wall
+             and device ms against the bytes bound (weights read once, the
+             SSD state and conv tails read and written once);
+  serve_deepseek  DeepSeek-V3 at full width, depth cut 61 -> 4 (first_k_dense
+             = 3 dense MLA layers, 1 MoE layer of 256 routed experts top-8 and
+             a shared expert, MTP; bf16, 15 162 481 664 parameters), 4 slots
+             x (512 + 64), 12 requests (max_new 16 + 16 (i % 4)): run()
+             metrics, prefill ms, the decode step against its bytes bound
+             (every expert's weights read once a step); then one loss with
+             its gradients on 1 x 256 tokens (bf16 gradients beside the
+             params);
+  families_full  a 2 x 2048 prefill and 32 greedy decode steps through
+             serve() for Gemma3-12B at full width, depth cut 48 -> 6 (one 5:1
+             unit), Zamba2-1.2B whole and Grok-1 at full width, depth cut
+             64 -> 1; bf16. Gemma3's ring caches (windowed_cache, the prompt
+             longer than the 1024 window) against full ones: in bf16,
+             teacher-forced logits within LM_BF16_TOL of each row's scale and
+             the free-running tokens reported; in float32 compute, the same tokens. The family
+             phases launch none of K1-K4 (launches_families in the kernels
+             line).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -1065,6 +1099,455 @@ def serve_live_phase() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase serve_live ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only families (phases families_small_ref, serve_mamba2,
+# serve_deepseek and families_full)
+# ---------------------------------------------------------------------------
+
+FAMILY_IDS = ("deepseek_v3_671b", "grok1_314b", "gemma3_12b", "mamba2_1p3b", "zamba2_1p2b")
+#: families_small_ref: a 2 x FAM_PROMPT batch, FAM_DECODE greedy tokens
+FAM_PROMPT, FAM_DECODE = 32, 16
+#: serve_mamba2: Mamba2-1.3B whole, the serve phase's server shape and load
+MAMBA_SLOTS, MAMBA_PROMPT, MAMBA_MAX_NEW, MAMBA_REQUESTS, MAMBA_ADOPT_AT = 8, 1024, 128, 24, (20, 60)
+#: serve_deepseek: DeepSeek-V3 at full width, depth cut to DS_LAYERS
+#: (first_k_dense = 3 stays: 3 dense MLA layers, 1 MoE layer, and MTP)
+DS_LAYERS, DS_SLOTS, DS_PROMPT, DS_MAX_NEW, DS_REQUESTS = 4, 4, 512, 64, 12
+#: families_full: (arch, depth, or None for the whole stack), a prompt of
+#: FULL_PROMPT tokens for each of FULL_BATCH rows and FULL_GEN tokens
+FULL_MODELS = (("gemma3_12b", 6), ("zamba2_1p2b", None), ("grok1_314b", 1))
+FULL_BATCH, FULL_PROMPT, FULL_GEN = 2, 2048, 33
+#: decode steps under the profiler in serve_mamba2 and serve_deepseek
+FAM_PROFILED_STEPS = 20
+RUN_METRICS = ("requests_completed", "dropped_requests", "req_per_s", "latency_p50_s", "latency_p99_s",
+               "decode_steps", "decode_tokens", "prefill_s", "decode_s", "decode_tok_per_s", "step_p50_ms",
+               "step_p99_ms", "adoptions", "adoption_steps", "adoption_blip_p99_ms", "steady_step_p99_ms",
+               "stale_cert_gap_mean", "stale_cert_gap_max", "recompiles", "wall_s")
+
+
+def _family_pass(cfg, params, tokens, steps: int):
+    """Loss and every gradient of one batch, prefill logits and ``steps``
+    greedy tokens (re-buffered caches, in-place decode): (values, tokens)."""
+    import torch
+
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.serving import rebuffer_caches
+    from repro_torch.models import decode_step, loss_fn, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+    loss, _ = loss_fn(leaves, cfg, synthetic_token_batch(tokens))
+    loss.backward()
+    grads = [a.grad for a in tree_leaves(leaves)]
+    b, s = tokens.shape
+    with torch.no_grad():
+        logits, pre = prefill(params, cfg, {"tokens": tokens})
+        caches = rebuffer_caches(cfg, pre, b, s + steps, s, 0)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out = [tok]
+        for i in range(steps - 1):
+            lg, caches = decode_step(params, cfg, tok, caches, s + i, in_place=True)
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            out.append(tok)
+    return [loss.detach(), logits] + grads, torch.cat(out, 1)
+
+
+def families_small_ref_phase() -> None:
+    """reduced() of each decoder-only family in float32, built on the CPU
+    from a seed: loss, gradients, prefill logits and 16 greedy tokens on
+    the card twice (the same bits) and against the CPU (tokens equal,
+    values within rtol 1e-4 / atol 1e-5 of each output's scale); a
+    16-step teacher-forced decode against the full forward on the card at
+    the reference's 2e-2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models.config import layer_segments
+    from repro_torch.models.model import _embed, _logits, _positions
+    from repro_torch.models.transformer import forward_stack
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    for arch in FAMILY_IDS:
+        cfg = reduced(get_config(arch))
+        params = init_params(cfg, SEED, "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab, (2, FAM_PROMPT))
+                                  .astype(np.int32))
+        cpu_vals, cpu_toks = _family_pass(cfg, params, tokens, FAM_DECODE)
+        gpu = tree_map(lambda a: a.to("cuda"), params)
+        a_vals, a_toks = _family_pass(cfg, gpu, tokens.to("cuda"), FAM_DECODE)
+        b_vals, b_toks = _family_pass(cfg, gpu, tokens.to("cuda"), FAM_DECODE)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(x, y) for x, y in zip(a_vals, b_vals)) and torch.equal(a_toks, b_toks)
+        errs = [float((g.cpu() - c).abs().max()) for g, c in zip(a_vals, cpu_vals)]
+        close = all(torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-5 * max(1.0, float(c.abs().max())))
+                    for g, c in zip(a_vals, cpu_vals))
+        same_toks = torch.equal(a_toks.cpu(), cpu_toks)
+        with torch.no_grad():
+            toks = tokens[:1, :FAM_DECODE].to("cuda")
+            x, _, _ = forward_stack(gpu["decoder"], layer_segments(cfg), cfg, _embed(gpu, cfg, toks),
+                                    _positions(toks), shared_params=gpu.get("shared_attn"))
+            full = _logits(gpu, cfg, x)
+            caches = init_cache(cfg, 1, FAM_DECODE, device="cuda")
+            dec = []
+            for i in range(FAM_DECODE):
+                lg, caches = decode_step(gpu, cfg, toks[:, i:i + 1], caches, i)
+                dec.append(lg[:, 0])
+            dec = torch.stack(dec, 1)
+        tf_err = float((dec - full).abs().max())
+        tf_ok = bool(torch.allclose(dec, full, rtol=2e-2, atol=2e-2))
+        log(f"phase families_small_ref arch={arch} leaves={len(a_vals) - 2} card_repeats_bitwise={repeat} "
+            f"tokens_equal_cpu={same_toks} loss_err={errs[0]:.3g} logits_err={errs[1]:.3g} "
+            f"grads_max_abs_err={max(errs[2:]):.3g} teacher_forced_max_abs_err={tf_err:.3g} "
+            f"tokens={a_toks[0].tolist()}")
+        if not (repeat and same_toks and close and tf_ok):
+            raise AssertionError(f"families_small_ref {arch}: repeat {repeat}, tokens {same_toks}, "
+                                 f"card vs cpu within tolerance {close}, teacher-forced {tf_ok}")
+    log(f"phase families_small_ref ok seconds={time.perf_counter() - t0:.3f}")
+
+
+def _decode_profile(server, cfg, tokens, max_len: int, steps: int, profile_from: int):
+    """From a batched prefill of ``tokens``: ``steps`` decode steps of the
+    server's own decode step, each ending in the server's host sync, timed
+    without the profiler and then again under it. Returns (wall ms a
+    step, device ms a step, device ops a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serving import rebuffer_caches
+
+    B, P = tokens.shape
+    with torch.no_grad():
+        tok, pre = server._prefill_fn(server.params, {"tokens": tokens})
+        caches = rebuffer_caches(cfg, pre, B, max_len, P, 0)
+        del pre
+        decode = server._decode_fn
+
+        def window(first: int) -> float:
+            nonlocal tok, caches
+            t0 = time.perf_counter()
+            for i in range(steps):
+                pos = torch.full((B,), first + i, dtype=torch.int32, device="cuda")
+                tok, caches = decode(server.params, tok, caches, pos, None)
+                tok.cpu()
+            return (time.perf_counter() - t0) * 1e3 / steps
+
+        window(P)  # warm
+        wall_ms = window(P + steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window(P + 2 * steps)
+    del caches, tok
+    cuda = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in cuda) / 1e3 / steps
+    return wall_ms, busy, sum(e.count for e in cuda) / steps
+
+
+def _weights_read(cfg, params) -> int:
+    """Bytes of the parameters one decode step reads: all but the
+    embedding table (a gather of one row a slot) and the MTP head (loss only)."""
+    from repro_torch.tree import tree_leaves
+
+    skip = {id(params["embed"])} | ({id(params["mtp_head"])} if "mtp_head" in params else set())
+    return sum(a.numel() * a.element_size() for a in tree_leaves(params) if id(a) not in skip)
+
+
+def serve_mamba2_phase() -> None:
+    """The continuous-batching server on Mamba2-1.3B at full width and
+    depth in bf16 (see the module doc)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
+    from repro_torch.launch.steps import dryrun_cfg
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dryrun_cfg(get_config("mamba2_1p3b"))
+    B, P = MAMBA_SLOTS, MAMBA_PROMPT
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (MAMBA_REQUESTS, P), dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    snaps = {}
+    for cert, (step, seed) in zip((2.0, 1.0), zip(MAMBA_ADOPT_AT, (SEED + 1, SEED + 2))):
+        p = init_params(cfg, seed, "cuda")
+        snaps[step] = (tree_map(lambda a: a.to("cpu"), p), cert)
+        del p
+    torch.cuda.empty_cache()
+    snap_s = time.perf_counter() - t0
+    params = init_params(cfg, SEED, "cuda")
+    n_params = param_count(params)
+    param_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    d_inner, H, Pd, N = ssm_dims(cfg)
+    state_bytes = cfg.num_layers * B * (H * N * Pd * 4 + (cfg.ssm_conv_width - 1) * (d_inner + 2 * N) * 2)
+    log(f"phase serve_mamba2 model arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"ssm_state={cfg.ssm_state} params={n_params} param_bytes={param_bytes} "
+        f"dtype={cfg.param_dtype}/{cfg.compute_dtype} decode_state_bytes={state_bytes} "
+        f"snapshots_to_host_s={snap_s:.3f}")
+    if n_params != 1_446_714_368:
+        raise AssertionError(f"serve_mamba2: {n_params} parameters")
+
+    scfg = ServingConfig(slots=B, prompt_len=P, max_new=MAMBA_MAX_NEW, seed=SEED)
+    server = ContinuousServer(cfg, scfg, params, device="cuda")
+    warm_s = server.warmup()
+    counts = server.compile_counts()
+    if counts != {"prefill": 2, "decode": 1, "insert": 1}:
+        raise AssertionError(f"serve_mamba2: signatures after warmup {counts}")
+    load_new = [16 + 16 * (i % 8) for i in range(MAMBA_REQUESTS)]
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=load_new[i]) for i in range(MAMBA_REQUESTS)]
+    base, base_m = server.run(reqs)
+    slot = AdoptionSlot()
+
+    def hook(_, step):
+        if step in snaps:
+            slot.publish(snaps[step][0], cert=snaps[step][1], round=step)
+
+    ptrs = [x.data_ptr() for x in tree_leaves(server.params)]
+    results, m = server.run(reqs, slot=slot, step_hook=hook)
+    swapped = [x.data_ptr() for x in tree_leaves(server.params)] == ptrs
+    changed = sum(not np.array_equal(x.tokens, y.tokens) for x, y in zip(results, base))
+    log(f"phase serve_mamba2 warmup_s={warm_s:.3f} compile_counts={json.dumps(counts)}")
+    log(f"phase serve_mamba2 load_no_adoption {json.dumps({k: base_m[k] for k in RUN_METRICS})}")
+    log(f"phase serve_mamba2 load_adoption {json.dumps({k: m[k] for k in RUN_METRICS})} "
+        f"requests_changed={changed} params_swapped_in_place={swapped}")
+    for name, mm, want in (("no_adoption", base_m, 0), ("adoption", m, 2)):
+        if not (mm["dropped_requests"] == 0 and mm["recompiles"] == 0 and mm["adoptions"] == want
+                and mm["requests_completed"] == MAMBA_REQUESTS):
+            raise AssertionError(f"serve_mamba2 {name}: {mm}")
+    if not swapped or changed == 0:
+        raise AssertionError(f"serve_mamba2: adoption in place {swapped}, {changed} requests changed")
+    del snaps, slot, results, base
+    gc.collect()
+
+    toks = torch.from_numpy(prompts[:B]).to("cuda")
+    with torch.no_grad():
+        prefill_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks}))
+        prefill1_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks[:1]}))
+    wall_ms, busy, ops_step = _decode_profile(server, cfg, toks, P + MAMBA_MAX_NEW, FAM_PROFILED_STEPS, P)
+    # a decode step's least bytes: the weights it reads once, and the SSD
+    # state and conv tails read once and written once
+    read = _weights_read(cfg, server.params)
+    bound_ms = (read + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"phase serve_mamba2 prefill_ms batched={prefill_ms:.3f} ({B}x{P}) single_row={prefill1_ms:.3f}")
+    log(f"phase serve_mamba2 decode_profile steps={FAM_PROFILED_STEPS} wall_ms_per_step={wall_ms:.3f} "
+        f"device_ms_per_step={busy:.3f} device_idle_share={1 - busy / wall_ms:.4f} "
+        f"device_ops_per_step={ops_step:.0f} bytes_bound_ms={bound_ms:.3f} (weights {read} B + state "
+        f"{state_bytes} B read and written at {HBM_BYTES_PER_S:.3g} B/s) "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del server, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase serve_mamba2 ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+def serve_deepseek_phase() -> None:
+    """The server on DeepSeek-V3 at full width, depth cut to DS_LAYERS, in
+    bf16; then one loss with its gradients (see the module doc)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.serving import ContinuousServer, Request, ServingConfig
+    from repro_torch.launch.steps import dryrun_cfg
+    from repro_torch.models import init_params, loss_fn, param_count
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(dryrun_cfg(get_config("deepseek_v3_671b")), num_layers=DS_LAYERS)
+    B, P = DS_SLOTS, DS_PROMPT
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (DS_REQUESTS, P), dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    param_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    log(f"phase serve_deepseek model arch={cfg.name} layers={cfg.num_layers} (first_k_dense="
+        f"{cfg.first_k_dense}) d_model={cfg.d_model} experts={cfg.num_experts} "
+        f"top_k={cfg.num_experts_per_tok} "
+        f"mtp_depth={cfg.mtp_depth} params={n_params} param_bytes={param_bytes} "
+        f"dtype={cfg.param_dtype}/{cfg.compute_dtype} init_s={time.perf_counter() - t0:.3f} "
+        f"init_max_memory_allocated={init_peak}")
+    if n_params != 15_162_481_664:
+        raise AssertionError(f"serve_deepseek: {n_params} parameters")
+
+    scfg = ServingConfig(slots=B, prompt_len=P, max_new=DS_MAX_NEW, seed=SEED)
+    server = ContinuousServer(cfg, scfg, params, device="cuda")
+    warm_s = server.warmup()
+    counts = server.compile_counts()
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=16 + 16 * (i % 4)) for i in range(DS_REQUESTS)]
+    results, m = server.run(reqs)
+    log(f"phase serve_deepseek warmup_s={warm_s:.3f} compile_counts={json.dumps(counts)}")
+    log(f"phase serve_deepseek load {json.dumps({k: m[k] for k in RUN_METRICS})}")
+    if counts != {"prefill": 2, "decode": 1, "insert": 1}:
+        raise AssertionError(f"serve_deepseek: signatures after warmup {counts}")
+    if not (m["dropped_requests"] == 0 and m["recompiles"] == 0 and m["requests_completed"] == DS_REQUESTS):
+        raise AssertionError(f"serve_deepseek: {m}")
+    if not all(len(r.tokens) == 16 + 16 * (r.rid % 4) for r in results):
+        raise AssertionError("serve_deepseek: a request's token count")
+
+    toks = torch.from_numpy(prompts[:B]).to("cuda")
+    with torch.no_grad():
+        prefill_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks}))
+        prefill1_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks[:1]}))
+    wall_ms, busy, ops_step = _decode_profile(server, cfg, toks, P + DS_MAX_NEW, FAM_PROFILED_STEPS, P)
+    read = _weights_read(cfg, server.params)
+    latent_token_bytes = cfg.num_layers * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    cache_read = B * (P + 2 * FAM_PROFILED_STEPS + FAM_PROFILED_STEPS // 2) * latent_token_bytes
+    bound_ms = (read + cache_read) / HBM_BYTES_PER_S * 1e3
+    log(f"phase serve_deepseek prefill_ms batched={prefill_ms:.3f} ({B}x{P}) single_row={prefill1_ms:.3f}")
+    log(f"phase serve_deepseek decode_profile steps={FAM_PROFILED_STEPS} wall_ms_per_step={wall_ms:.3f} "
+        f"device_ms_per_step={busy:.3f} device_idle_share={1 - busy / wall_ms:.4f} "
+        f"device_ops_per_step={ops_step:.0f} bytes_bound_ms={bound_ms:.3f} (weights {read} B, all 256 "
+        f"experts, + latents {cache_read} B at {HBM_BYTES_PER_S:.3g} B/s) "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one loss with its gradients (bf16 grads beside the bf16 params)
+    torch.cuda.reset_peak_memory_stats()
+    batch = synthetic_token_batch(torch.from_numpy(prompts[:1, :256]).to("cuda"))
+    leaves = tree_map(lambda a: a.detach().requires_grad_(True), params)
+    t0 = time.perf_counter()
+    loss, metrics = loss_fn(leaves, cfg, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grads_finite = all(bool(torch.isfinite(a.grad).all()) for a in tree_leaves(leaves))
+    router = float(leaves["decoder"][1][0]["moe"]["router"].grad.abs().sum())
+    loss = loss.detach()
+    log(f"phase serve_deepseek loss_and_grads tokens={tuple(batch['tokens'].shape)} loss={float(loss):.6f} "
+        f"metrics={json.dumps({k: float(v) for k, v in metrics.items()})} grads_finite={grads_finite} "
+        f"router_grad_abs_sum={router:.6g} seconds={grad_s:.3f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not (grads_finite and router > 0.0 and np.isfinite(float(loss)) and "mtp_loss" in metrics):
+        raise AssertionError(f"serve_deepseek: loss {float(loss)}, grads finite {grads_finite}, "
+                             f"router {router}")
+    del leaves, loss, metrics, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase serve_deepseek ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+def _ring_checks(cfg, params, prompts, full_tokens) -> None:
+    """Gemma3's local layers on ring caches (``windowed_cache``) against
+    full-length caches, the prompt longer than the window: (1) bf16,
+    teacher-forced on the full-cache run's tokens, every step's logits
+    within LM_BF16_TOL * (1 + the row's largest |logit|) (six layers of
+    bf16 hidden states rounded in another order move a small logit by
+    steps of the large ones' spacing); the ring's free-running tokens are
+    reported beside the full cache's (bf16 sums over keys in another order
+    round differently, and a near-tie can flip a greedy choice); (2) float32
+    compute (the same bf16 weights), free-running: the same tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serving import rebuffer_caches
+    from repro_torch.models import decode_step, prefill
+
+    ring_cfg = dataclasses.replace(cfg, windowed_cache=True)
+    B, P = prompts.shape
+    toks = torch.from_numpy(prompts).to("cuda")
+    gen = torch.from_numpy(full_tokens).to("cuda")
+    logits = []
+    with torch.no_grad():
+        for c in (cfg, ring_cfg):
+            lg, pre = prefill(params, c, {"tokens": toks})
+            caches = rebuffer_caches(c, pre, B, P + FULL_GEN, P, 0)
+            del pre
+            steps = [lg[:, -1]]
+            for i in range(FULL_GEN - 1):
+                lg, caches = decode_step(params, c, gen[:, i:i + 1], caches, P + i, in_place=True)
+                steps.append(lg[:, -1])
+            logits.append(torch.stack(steps, 1))
+            del caches
+    full, ring = logits
+    err = (ring - full).abs()
+    tf_ok = bool((err <= LM_BF16_TOL * (1 + full.abs().amax(-1, keepdim=True))).all())
+    ring_out = serve(ring_cfg, B, P, FULL_GEN, params=params, prompts=prompts, device="cuda")
+    agree = (ring_out["generated"] == full_tokens).all(axis=0)
+    lead = int(np.argmin(agree)) if not agree.all() else FULL_GEN
+    top2 = torch.topk(full[:, min(lead, FULL_GEN - 1)], 2, dim=-1).values
+    log(f"phase families_full arch={cfg.name} ring_bf16 teacher_forced_max_abs_err={float(err.max()):.4g} "
+        f"max_abs_logit={float(full.abs().max()):.4g} within_tolerance={tf_ok} "
+        f"free_running_tokens_equal={bool(agree.all())} leading_steps_equal={lead} "
+        f"full_cache_top2_margin_there={(top2[:, 0] - top2[:, 1]).tolist()} "
+        f"ring_step_p50_ms={ring_out['metrics']['step_p50_ms']:.3f} "
+        f"ring_tokens={ring_out['generated'][0].tolist()}")
+    if not tf_ok:
+        raise AssertionError(f"families_full {cfg.name}: ring logits differ by {float(err.max()):.4g}")
+    gens = []
+    for c in (cfg, ring_cfg):
+        c32 = dataclasses.replace(c, compute_dtype="float32")
+        gens.append(serve(c32, B, P, FULL_GEN, params=params, prompts=prompts, device="cuda")["generated"])
+    same = np.array_equal(gens[0], gens[1])
+    log(f"phase families_full arch={cfg.name} ring_float32_compute tokens_equal={same} "
+        f"window={cfg.sliding_window} prompt={P} tokens={gens[0][0].tolist()}")
+    if not same:
+        raise AssertionError(f"families_full {cfg.name}: float32 ring tokens differ from the full cache's")
+
+
+def families_full_phase() -> None:
+    """A prefill of FULL_BATCH x FULL_PROMPT and FULL_GEN - 1 greedy decode
+    steps through serve() for Gemma3-12B (one 5:1 unit; ring caches
+    checked against full ones, _ring_checks), Zamba2-1.2B whole and Grok-1
+    (one layer), bf16 params and compute at full width."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import dryrun_cfg
+    from repro_torch.models import init_params, param_count
+
+    t_phase = time.perf_counter()
+    for arch, depth in FULL_MODELS:
+        cfg = dryrun_cfg(get_config(arch))
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, SEED, "cuda")
+        n_params = param_count(params)
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (FULL_BATCH, FULL_PROMPT),
+                                                       dtype=np.int32)
+        out = serve(cfg, FULL_BATCH, FULL_PROMPT, FULL_GEN, params=params, prompts=prompts, device="cuda")
+        m = out["metrics"]
+        log(f"phase families_full arch={arch} layers={cfg.num_layers} params={n_params} batch={FULL_BATCH} "
+            f"prompt={FULL_PROMPT} gen={FULL_GEN} compile_s={out['compile_s']:.3f} "
+            f"prefill_s={out['prefill_s']:.4f} decode_s={out['decode_s']:.4f} tok_per_s={out['tok_per_s']:.1f} "
+            f"step_p50_ms={m['step_p50_ms']:.3f} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()} tokens={out['generated'][0].tolist()}")
+        if not (m["dropped_requests"] == 0 and m["recompiles"] == 0
+                and out["generated"].shape == (FULL_BATCH, FULL_GEN)):
+            raise AssertionError(f"families_full {arch}: {m}")
+        if cfg.sliding_window:
+            _ring_checks(cfg, params, prompts, out["generated"])
+        del params, out
+        gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase families_full ok seconds={time.perf_counter() - t_phase:.3f}")
 
 
 def main() -> int:
@@ -2117,6 +2600,17 @@ def main() -> int:
     log(f"phase serving launches={json.dumps(serve_launches)}")
     for k, rec in records.items():
         rec["launches_serve"] = serve_launches[k]
+
+    # ------------------------------------------------------ the families
+    ops.reset_launches()
+    families_small_ref_phase()
+    serve_mamba2_phase()
+    serve_deepseek_phase()
+    families_full_phase()
+    family_launches = dict(ops.LAUNCHES)
+    log(f"phase families launches={json.dumps(family_launches)}")
+    for k, rec in records.items():
+        rec["launches_families"] = family_launches[k]
 
     log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

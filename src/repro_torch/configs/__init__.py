@@ -2,9 +2,10 @@
 model architectures; counterpart of ``src/repro/configs/__init__.py``.
 
 ``get_config(arch_id)`` / ``reduced(cfg)`` / ``all_configs()`` as in the
-reference. The port carries the dense GQA families only; the other
+reference. The port carries every decoder-only family (dense, MoE with
+MLA and MTP, SSM, hybrid, sliding-window); the enc-dec and VLM
 architectures of ``ARCH_IDS`` raise until their layers are ported
-(ROADMAP.md queue 1, item 14).
+(ROADMAP.md queue 1, item 14b).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ ARCH_IDS = [
 ]
 
 #: the architectures whose every layer the port has
-PORTED_ARCH_IDS = ("yi_9b", "starcoder2_7b", "internlm2_20b")
+PORTED_ARCH_IDS = ("yi_9b", "starcoder2_7b", "internlm2_20b", "zamba2_1p2b", "deepseek_v3_671b", "gemma3_12b",
+                   "mamba2_1p3b", "grok1_314b")
 
 _ALIASES = {
     "yi-9b": "yi_9b",
@@ -50,7 +52,7 @@ def get_config(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ALIASES)}")
     if mod_name not in PORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"arch {mod_name!r} is not ported yet (ROADMAP item 14); ported: {list(PORTED_ARCH_IDS)}"
+            f"arch {mod_name!r} is not ported yet (ROADMAP item 14b); ported: {list(PORTED_ARCH_IDS)}"
         )
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -130,7 +130,10 @@ def sparrow_state_from_numpy(state: Any, seed: int, device) -> SparrowState:
 def lm_params_from_numpy(params: Any, device) -> Any:
     """The reference's LM parameter tree (dicts and lists of numpy
     arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` leaves it)
-    -> the same tree of tensors on ``device``, leaf for leaf."""
+    -> the same tree of tensors on ``device``, leaf for leaf. ``None``
+    (an empty subtree, as Zamba2's ``shared_attn`` positions) stays None."""
+    if params is None:
+        return None
     if isinstance(params, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

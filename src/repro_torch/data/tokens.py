@@ -55,7 +55,7 @@ class TokenPipeline:
     batches, ``element_spec``) is what a trainer depends on. Batches live
     on ``device``, the card unless the caller asks for the CPU. (The
     reference's modality-frontend embeddings come with the frontend
-    models, ROADMAP.md queue 1, item 14.)"""
+    models, ROADMAP.md queue 1, item 14b.)"""
 
     batch: int
     seq: int

@@ -18,6 +18,10 @@ ensemble. Runs on the card unless ``--device cpu`` is asked for:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --reduced \\
       --batch 2 --prompt-len 16 --gen 16
+
+Every decoder-only family serves (``--arch mamba2-1.3b``,
+``deepseek-v3-671b``, ``gemma3-12b``, ``zamba2-1.2b``, ``grok-1-314b``);
+whisper and phi-3-vision raise (ROADMAP.md queue 1, item 14b).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import PORTED_ARCH_IDS, get_config, reduced
 from repro_torch.data.tokens import stream_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
@@ -90,7 +94,9 @@ def serve(
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"a ported architecture, one of {', '.join(PORTED_ARCH_IDS)} (or its dashed alias, "
+                    "e.g. mamba2-1.3b)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -34,9 +34,10 @@ reference donates them, ``donate_argnums=(2,)``): the decode step
 writes each new K/V entry into its slot of the stacked buffers, and an
 admitted request's prefix is a slice assignment into its row. The
 server runs on the card (``device="cuda"``) unless the caller asks for
-the CPU, and raises without a card. Dense GQA models only: the
-reference's SSM, cross-attention and frontend branches raise (ROADMAP.md
-queue 1, item 14).
+the CPU, and raises without a card. Every decoder-only family: GQA K/V
+(full or a sliding window's ring), MLA latents and SSD state; the
+reference's cross-attention and frontend branches raise (ROADMAP.md
+queue 1, item 14b).
 """
 
 from __future__ import annotations
@@ -64,17 +65,34 @@ from repro_torch.tree import tree_leaves, tree_map
 # ----------------------------------------------------------------------------
 
 
+def _prefix(b_full: torch.Tensor, b_pre: torch.Tensor) -> tuple[tuple, torch.Tensor]:
+    """Where a prefill cache entry lands in its decode buffer, batch rows
+    aside: (the index of dims 2.., the block to write). SSD state and
+    conv tails have the buffer's shape there and land whole; K/V and MLA
+    latents are a prompt prefix along dim 2. A prompt longer than a
+    sliding window's ring (``windowed_cache``) keeps its last S
+    positions, each at slot ``position % S``, as decode writes them."""
+    S, n = b_full.shape[2], b_pre.shape[2]
+    if n > S:
+        b_pre = torch.roll(b_pre[:, :, n - S:], shifts=n % S, dims=2)
+    return tuple(slice(0, m) for m in b_pre.shape[2:]), b_pre
+
+
 def rebuffer_caches(cfg, prefill_caches, batch: int, max_len: int, prompt_len: int, enc_len: int):
     """Copy prefill caches (sized to the prompt) into zeroed max_len
-    buffers on the prefill caches' device: each self-attention K/V gets
-    the prompt prefix along its sequence axis. ``enc_len`` (the
+    buffers on the prefill caches' device: SSD state and conv tails
+    whole (the reference's ``serving.py:61``), each self-attention K/V
+    and MLA latent cache the prompt prefix along its sequence axis, and
+    a sliding window's ring (``cfg.windowed_cache``) the prompt's last
+    window positions at their ring slots. ``enc_len`` (the
     cross-attention length) is 0 for every model the port has."""
-    check_supported(cfg)  # SSM state, cross-attention K/V, frontends: item 14
+    check_supported(cfg)  # cross-attention K/V and frontends: item 14b
     full = init_cache(cfg, batch, max_len, device=tree_leaves(prefill_caches)[0].device)
     for seg_full, seg_pre in zip(full, prefill_caches):
         for buf_full, buf_pre in zip(seg_full, seg_pre):
             for b_full, b_pre in zip(buf_full, buf_pre):
-                b_full[:, :, : b_pre.shape[2]].copy_(b_pre)
+                idx, block = _prefix(b_full, b_pre)
+                b_full[(slice(None), slice(None)) + idx].copy_(block)
     return full
 
 
@@ -82,15 +100,19 @@ def _insert_row(caches, pre_caches, row: int):
     """Write a single prefilled request (batch-1 prefill caches) into
     row ``row`` of the full decode buffers, in place; returns them.
 
-    The batch-1 block lands at (0, row, 0, ...): a prompt-prefix write
-    for self-attn K/V (the pre block is shorter along the seq axis).
-    Stale entries beyond the prefix belong to the row's previous
-    occupant and sit at key positions > the new request's positions, so
-    the causal mask hides them until they are overwritten.
+    The batch-1 block lands at (0, row, 0, ...): a full row overwrite
+    for SSD state and conv tails (their shapes match but for the batch)
+    and a prompt-prefix write for self-attention K/V and MLA latents (the
+    pre block is shorter along the seq axis; a ring keeps the last
+    window, as :func:`rebuffer_caches` does). Stale entries beyond the
+    prefix belong to the row's previous occupant and sit at key
+    positions > the new request's positions, so the causal mask hides
+    them until they are overwritten.
     """
 
     def one(b_full, b_pre):
-        b_full[(slice(None), slice(row, row + 1)) + tuple(slice(0, n) for n in b_pre.shape[2:])].copy_(b_pre)
+        idx, block = _prefix(b_full, b_pre)
+        b_full[(slice(None), slice(row, row + 1)) + idx].copy_(block)
         return b_full
 
     return tree_map(one, caches, pre_caches)
@@ -167,7 +189,7 @@ class Request:
     the batcher keeps fixed shapes, so all requests share the server's
     prompt length. ``max_new`` counts generated tokens *including* the
     prefill-produced first token; it must be in [1, cfg.max_new]. (The
-    reference's ``frontend`` embeddings come with item 14's models.)"""
+    reference's ``frontend`` embeddings come with item 14b's models.)"""
 
     rid: int
     prompt: np.ndarray

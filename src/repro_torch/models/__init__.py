@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer LMs; counterpart of
-``src/repro/models``.
+"""Decoder-only LMs (dense, MoE with MLA and MTP, Mamba2 SSD, the Zamba2
+hybrid, sliding-window stacks); counterpart of ``src/repro/models``.
 
 Plain functions over a parameter dict: ``init_params(cfg, generator,
 device)`` builds it, ``loss_fn`` / ``prefill`` / ``decode_step`` apply

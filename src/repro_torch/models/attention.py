@@ -1,9 +1,11 @@
-"""Grouped-query attention (optionally sliding-window), full-sequence and
-single-token decode; counterpart of the GQA half of
-``src/repro/models/attention.py``. MLA and cross-attention wait for
-ROADMAP.md queue 1, item 14.
+"""Grouped-query attention (optionally sliding-window) and MLA
+(DeepSeek-V3 multi-head latent attention, compressed KV cache),
+full-sequence and single-token decode; counterpart of the GQA and MLA
+parts of ``src/repro/models/attention.py``. Cross-attention waits for
+ROADMAP.md queue 1, item 14b.
 
-All shapes: x (b, s, d); caches are (b, S_max, K, hd). The decode-path
+All shapes: x (b, s, d); caches are (b, S_max, K, hd) for GQA and
+(b, S_max, kv_lora_rank), (b, S_max, qk_rope_head_dim) for MLA. The decode-path
 ``pos`` write index is either a () scalar (batch decodes in lockstep)
 or a (b,) vector (continuous batching: each row at its own depth). A
 scalar is broadcast to (b,), so scalar-pos decode is the per-row write
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope, init_linear, rope_freqs
+from repro_torch.models.layers import _normal, apply_rope, init_linear, init_rms_norm, rms_norm, rope_freqs
 
 NEG_INF = -1e30
 
@@ -94,6 +96,14 @@ def ring_positions(pos_b: torch.Tensor, size: int) -> torch.Tensor:
     return p - torch.remainder(p - slot.unsqueeze(0), size)
 
 
+def _pos_rows(pos, b: int, device) -> torch.Tensor:
+    """A () or (b,) write position -> (b,) int32. A Python int is filled
+    on the device (a host-to-device copy of it would wait for the card)."""
+    if isinstance(pos, int):
+        return torch.full((b,), pos, dtype=torch.int32, device=device)
+    return pos.to(torch.int32).expand(b)
+
+
 def gqa_decode(
     params: dict,
     x: torch.Tensor,  # (b, 1, d)
@@ -113,10 +123,7 @@ def gqa_decode(
     hd = cfg.hd()
     H, K = cfg.num_heads, cfg.num_kv_heads
     G = H // K
-    # a Python int is filled on the device (a host-to-device copy of it
-    # would wait for the card)
-    pos_b = (torch.full((b,), pos, dtype=torch.int32, device=x.device) if isinstance(pos, int)
-             else pos.to(torch.int32).expand(b))
+    pos_b = _pos_rows(pos, b, x.device)
     positions = pos_b.unsqueeze(1)
     q, k_new, v_new = _gqa_qkv(params, x, positions, cfg)
     S = cache_k.shape[1]
@@ -138,3 +145,114 @@ def gqa_decode(
     out = out.reshape(b, 1, H * hd)
     out = torch.matmul(out, params["wo"].to(x.dtype))
     return out, cache_k, cache_v
+
+
+# ----------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank Q, compressed latent KV cache, rope/nope split
+# ----------------------------------------------------------------------------
+
+
+def init_mla(generator, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) -> dict:
+    H = cfg.num_heads
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    r = cfg.kv_lora_rank
+    p = {
+        "wkv_a": init_linear(generator, cfg.d_model, r + cfg.qk_rope_head_dim, dtype, device, lead),
+        "kv_norm": init_rms_norm(r, dtype, device, lead),
+        # absorbed projections, stored per head
+        "wkv_b_k": _normal(lead + (H, cfg.qk_nope_head_dim, r), r ** -0.5, dtype, generator, device),
+        "wkv_b_v": _normal(lead + (H, r, cfg.v_head_dim), r ** -0.5, dtype, generator, device),
+        "wo": init_linear(generator, H * cfg.v_head_dim, cfg.d_model, dtype, device, lead),
+    }
+    if cfg.q_lora_rank:
+        p["wq_a"] = init_linear(generator, cfg.d_model, cfg.q_lora_rank, dtype, device, lead)
+        p["q_norm"] = init_rms_norm(cfg.q_lora_rank, dtype, device, lead)
+        p["wq_b"] = init_linear(generator, cfg.q_lora_rank, H * qk_dim, dtype, device, lead)
+    else:
+        p["wq"] = init_linear(generator, cfg.d_model, H * qk_dim, dtype, device, lead)
+    return p
+
+
+def _mla_q(params, x, positions, cfg: ArchConfig):
+    b, s, _ = x.shape
+    H = cfg.num_heads
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        ql = torch.matmul(x, params["wq_a"].to(x.dtype))
+        ql = rms_norm(ql, params["q_norm"], cfg.norm_eps)
+        q = torch.matmul(ql, params["wq_b"].to(x.dtype))
+    else:
+        q = torch.matmul(x, params["wq"].to(x.dtype))
+    q = q.reshape(b, s, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    # absorb the key up-projection into the query -> latent space
+    q_lat = torch.einsum("bshn,hnr->bshr", q_nope, params["wkv_b_k"].to(x.dtype))
+    return q_lat, q_rope
+
+
+def _mla_kv_latent(params, x, positions, cfg: ArchConfig):
+    rd = cfg.qk_rope_head_dim
+    kv = torch.matmul(x, params["wkv_a"].to(x.dtype))
+    c_kv, k_rope = kv[..., : cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
+    c_kv = rms_norm(c_kv, params["kv_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
+    k_rope = apply_rope(k_rope.unsqueeze(-2), cos, sin).squeeze(-2)  # one shared head
+    return c_kv, k_rope
+
+
+def _mla_attend(params, q_lat, q_rope, c_kv, k_rope, mask, cfg: ArchConfig, dtype):
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    scores = torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv) + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
+    scores = torch.where(mask[:, None, :, :], scores.to(torch.float32) * scale, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    out_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+    v = torch.einsum("bqhr,hrv->bqhv", out_lat, params["wkv_b_v"].to(dtype))
+    b, s = v.shape[0], v.shape[1]
+    out = v.reshape(b, s, cfg.num_heads * cfg.v_head_dim)
+    return torch.matmul(out, params["wo"].to(dtype))
+
+
+def mla_full(params: dict, x: torch.Tensor, positions: torch.Tensor,
+             cfg: ArchConfig) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence causal MLA. Returns (out, (c_kv, k_rope)): the latent
+    cache entries, so prefill can seed the cache."""
+    q_lat, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_rope = _mla_kv_latent(params, x, positions, cfg)
+    mask = _causal_window_mask(positions, positions, None)
+    out = _mla_attend(params, q_lat, q_rope, c_kv, k_rope, mask, cfg, x.dtype)
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(
+    params: dict,
+    x: torch.Tensor,  # (b, 1, d)
+    cache_ckv: torch.Tensor,  # (b, S, kv_lora_rank)
+    cache_krope: torch.Tensor,  # (b, S, qk_rope_head_dim)
+    pos,  # () or (b,) int32
+    cfg: ArchConfig,
+    in_place: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against the latent cache. Returns (out, c_kv',
+    k_rope'): new tensors by default, or with ``in_place`` the caches
+    themselves with the new entries written in (the same bits)."""
+    b = x.shape[0]
+    pos_b = _pos_rows(pos, b, x.device)
+    positions = pos_b.unsqueeze(1)
+    q_lat, q_rope = _mla_q(params, x, positions, cfg)
+    c_new, r_new = _mla_kv_latent(params, x, positions, cfg)
+    rows = torch.arange(b, device=x.device)
+    idx = (rows, pos_b.long())
+    if in_place:
+        cache_ckv.index_put_(idx, c_new[:, 0].to(cache_ckv.dtype))
+        cache_krope.index_put_(idx, r_new[:, 0].to(cache_krope.dtype))
+    else:
+        cache_ckv = cache_ckv.index_put(idx, c_new[:, 0].to(cache_ckv.dtype))
+        cache_krope = cache_krope.index_put(idx, r_new[:, 0].to(cache_krope.dtype))
+    S = cache_ckv.shape[1]
+    kpos = torch.arange(S, dtype=torch.int32, device=x.device).expand(b, S)
+    mask = _causal_window_mask(positions, kpos, None)
+    out = _mla_attend(params, q_lat, q_rope, cache_ckv.to(x.dtype), cache_krope.to(x.dtype), mask, cfg,
+                      x.dtype)
+    return out, cache_ckv, cache_krope

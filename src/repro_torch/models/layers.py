@@ -22,13 +22,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+#: elements of float32 draw held at a time: a leaf is drawn in pieces of
+#: this size into its own dtype (DeepSeek-V3's stacked routed experts are
+#: 3.76e9 elements, 15 GB as one float32 draw plus its ``* std`` copy)
+DRAW_CHUNK = 2 ** 28
+
+
 def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
     """``N(0, 1) * std`` drawn in float32, then cast (the reference's
-    ``(normal(key, shape) * std).astype(dtype)``)."""
+    ``(normal(key, shape) * std).astype(dtype)``), ``DRAW_CHUNK``
+    elements at a time (a leaf of one piece gets a whole draw's values)."""
     dev = torch.device(device)
+    out = torch.empty(shape, dtype=dtype, device=dev)
     if dev.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=dev)
-    return (torch.randn(shape, generator=generator, device=dev) * std).to(dtype)
+        return out
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), DRAW_CHUNK):
+        m = min(DRAW_CHUNK, flat.numel() - start)
+        flat[start:start + m] = torch.randn((m,), generator=generator, device=dev) * std
+    return out
 
 
 def init_rms_norm(d: int, dtype, device="cpu", lead: tuple = ()) -> torch.Tensor:

@@ -734,3 +734,117 @@ def test_cuda_server_run_matches_cpu(cuda_device):
             assert [x.data_ptr() for x in tree_leaves(server.params)] == ptrs
         runs.append(([r.tokens.tolist() for r in res], [r.versions for r in res], m["decode_steps"]))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only families (no TPU kernel on this path: eager PyTorch)
+# ---------------------------------------------------------------------------
+
+FAMILY_IDS = ["deepseek_v3_671b", "grok1_314b", "gemma3_12b", "mamba2_1p3b", "zamba2_1p2b"]
+
+
+def _family_run(cfg, params, tokens, steps=16):
+    """Loss and gradients of one batch, prefill logits and ``steps``
+    greedy decode tokens (rebuffered caches, in-place decode)."""
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.serving import rebuffer_caches
+    from repro_torch.models import decode_step, loss_fn, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+    loss, _ = loss_fn(leaves, cfg, synthetic_token_batch(tokens))
+    loss.backward()
+    grads = [a.grad for a in tree_leaves(leaves)]
+    b, s = tokens.shape
+    with torch.no_grad():
+        logits, pre = prefill(params, cfg, {"tokens": tokens})
+        caches = rebuffer_caches(cfg, pre, b, s + steps, s, 0)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out = [tok]
+        for i in range(steps - 1):
+            lg, caches = decode_step(params, cfg, tok, caches, s + i, in_place=True)
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            out.append(tok)
+    return [loss.detach(), logits] + grads, torch.cat(out, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_IDS)
+def test_cuda_family_repeats_and_matches_cpu(cuda_device, arch):
+    """reduced() in float32: loss, every gradient, prefill logits and 16
+    greedy tokens are the same bits on a second run on the card (the MoE
+    scatter and the SSD cumsum add no float in a varying order), and
+    within rtol 1e-4 / atol 1e-5 of the output's scale of the CPU's,
+    tokens equal."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, 0, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 32)).astype(np.int32))
+    cpu_vals, cpu_toks = _family_run(cfg, params, tokens)
+    gpu = tree_map(lambda a: a.to(cuda_device), params)
+    a_vals, a_toks = _family_run(cfg, gpu, tokens.to(cuda_device))
+    b_vals, b_toks = _family_run(cfg, gpu, tokens.to(cuda_device))
+    assert all(torch.equal(x, y) for x, y in zip(a_vals, b_vals)) and torch.equal(a_toks, b_toks)
+    assert torch.equal(a_toks.cpu(), cpu_toks)
+    for g, c in zip(a_vals, cpu_vals):
+        scale = max(1.0, float(c.abs().max()))
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_IDS)
+def test_cuda_family_decode_matches_full_forward(cuda_device, arch):
+    """Teacher-forced decode from an empty cache against the full forward
+    on the card, at the reference's 2e-2."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import decode_step, init_cache, init_params, layer_segments
+    from repro_torch.models.model import _embed, _logits, _positions
+    from repro_torch.models.transformer import forward_stack
+
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, 0, cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (1, 16)).astype(np.int32)).to(
+        cuda_device)
+    with torch.no_grad():
+        x, _, _ = forward_stack(params["decoder"], layer_segments(cfg), cfg, _embed(params, cfg, tokens),
+                                _positions(tokens), shared_params=params.get("shared_attn"))
+        full = _logits(params, cfg, x)
+        caches = init_cache(cfg, 1, 16, device=cuda_device)
+        for i in range(16):
+            lg, caches = decode_step(params, cfg, tokens[:, i:i + 1], caches, i)
+            torch.testing.assert_close(lg[:, 0], full[:, i], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "deepseek_v3_671b"])
+def test_cuda_family_server_matches_cpu(cuda_device, arch):
+    """A ContinuousServer run with admission and an adoption on reduced
+    Mamba2 (SSD state) and DeepSeek-V3 (MLA latents, MoE): the card's
+    tokens, versions and counts equal the CPU's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config(arch))
+    params, snap = init_params(cfg, 0, "cpu"), init_params(cfg, 1, "cpu")
+    ps = np.random.default_rng(3).integers(0, cfg.vocab, (7, 8)).astype(np.int32)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        server = ContinuousServer(cfg, ServingConfig(slots=3, prompt_len=8, max_new=10),
+                                  tree_map(torch.clone, params), device=dev)
+        server.warmup()
+        slot = AdoptionSlot()
+
+        def hook(_, step, slot=slot):
+            if step == 3:
+                slot.publish(snap, cert=0.5)
+
+        res, m = server.run([Request(rid=i, prompt=ps[i], max_new=2 + (i * 3) % 9) for i in range(7)],
+                            slot=slot, step_hook=hook)
+        assert m["adoptions"] == 1 and m["recompiles"] == 0 and m["dropped_requests"] == 0
+        runs.append(([r.tokens.tolist() for r in res], [r.versions for r in res], m["decode_steps"]))
+    assert runs[0] == runs[1]

@@ -124,7 +124,7 @@ class TestConfigs:
 
     @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if a not in tconfigs.PORTED_ARCH_IDS])
     def test_unported_arch_raises_naming_item_14(self, arch):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
             tconfigs.get_config(arch)
 
     def test_unknown_arch(self):
@@ -143,14 +143,11 @@ class TestConfigs:
                 jcfg.hd(), jcfg.padded_vocab(), jcfg.is_encdec(), jcfg.expert_ff())
             assert len(encoder_segments(cfg)) == (1 if jcfg.is_encdec() else 0)
 
-    @pytest.mark.parametrize("kw", [dict(arch_type="moe", num_experts=4, num_experts_per_tok=2),
-                                    dict(arch_type="ssm", ssm_state=16), dict(attention="mla", kv_lora_rank=8,
-                                                                              qk_rope_head_dim=8),
-                                    dict(frontend="vision", frontend_len=4, frontend_dim=8),
-                                    dict(encoder_layers=2), dict(mtp_depth=1)])
+    @pytest.mark.parametrize("kw", [dict(frontend="vision", frontend_len=4, frontend_dim=8),
+                                    dict(encoder_layers=2)])
     def test_other_families_raise_naming_item_14(self, kw):
         cfg = dataclasses.replace(port_cfg(TINY_ARCH), **kw)
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
             tmodel.init_params(cfg, 0, CPU)
 
 

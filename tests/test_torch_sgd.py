@@ -359,6 +359,32 @@ def test_engine_equals_oracle_bit_for_bit(oracle, kw):
     assert res.rounds == ROUNDS and res.messages_accepted > 0
 
 
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "zamba2_1p2b"])
+def test_engine_equals_oracle_on_the_families(arch):
+    """TMSN-SGD on reduced DeepSeek-V3 (MLA, MoE with its router aux,
+    MTP) and Zamba2 (SSD, the shared attention block, whose ``None``
+    positions ride through AdamW, the engine's stacked payload and
+    adoption): the port's engine equals the port's oracle bit for bit,
+    and some model was adopted."""
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config(arch))
+
+    def worker():
+        return tsgd.lm_sgd_worker(cfg, AdamWConfig(lr=1e-2), ttmsn.TMSNSGDConfig(local_steps=K, ema=0.8,
+                                  width_coef=1.0), batch_size=BATCH, seq=SEQ, device=CPU)
+
+    w, rounds = 3, 3
+    want = ttmsn.oracle_run(worker(), w, rounds, eps=0.0, seed=0)
+    res = teng.TMSNEngine(worker(), _engine_cfg(n_workers=w, max_rounds=rounds), device=CPU).run()
+    np.testing.assert_array_equal(np.asarray(res.final_certificates, np.float32), want.certs)
+    assert res.rounds == rounds and res.messages_accepted > 0
+    models = res.final_models[0]
+    if arch == "zamba2_1p2b":
+        assert models["decoder"][0][1] is None and "shared_attn" in models
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(models))
+
+
 def test_oracle_history_matches_reference():
     """The port's oracle against the reference's ``oracle_run`` from the
     same initial parameters and the same draws, at rtol 1e-5."""
