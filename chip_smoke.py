@@ -27,7 +27,13 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              scatter_model_slice of a random 256-stump model) at a full
              disk refresh (n=180 000, d=64, B=8) and two ragged shapes;
              times by CUDA events (median of 25 samples of 20 calls) and by
-             the profiler's device records, K1's beside index_add_'s;
+             the profiler's device records, K1's beside index_add_'s; K1's
+             repeat check: K1_REPEATS launches at each of K1_REPEAT_SHAPES,
+             bit for bit the first launch's outputs, the ticket counters
+             kept between launches zero after each, in this process and in
+             K1_REPEAT_PROCESSES fresh ones (``chip_smoke.py --k1-repeat N``),
+             then compute-sanitizer's racecheck where the machine has it
+             (its result recorded, not held);
   small_ref  a small run of the whole slice on the card (kernels) against
              the same run on the CPU (plain versions);
   main       the paper's configuration (configs/sparrow.py: n=200 000,
@@ -176,7 +182,34 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              teacher-forced logits within LM_BF16_TOL of each row's scale and
              the free-running tokens reported; in float32 compute, the same tokens. The family
              phases launch none of K1-K4 (launches_families in the kernels
-             line).
+             line);
+  encdec_small_ref  reduced() of whisper_large_v3 (encoder, cross-attention)
+             and phi3_vision_4p2b (patch splice) in float32, built on the
+             CPU from a seed: loss, every gradient, prefill logits and 16
+             greedy tokens on the card against the CPU (tokens equal, values
+             within rtol 1e-4 / atol 1e-5 of each output's scale); a
+             ContinuousServer run (10 requests over 4 slots, each with its
+             own frontend, one adoption) card against CPU: tokens, versions
+             and counting metrics equal;
+  serve_whisper  whisper-large-v3 whole (32 encoder + 32 decoder layers, bf16,
+             1 601 154 560 parameters), 8 slots x (64 + 384) = 448, whisper's
+             decoder context; each request its own 1500 x 128 frontend drawn
+             from a seed (x 0.02): signatures after warmup prefill 2, decode
+             1, insert 1; row independence with frontends (a request beside
+             other requests, and admitted into a retired row, against a row
+             of zeros, bit for bit); one prompt with two frontends gives two
+             different first logits; 24 requests (max_new 32 + 32 (i % 8))
+             without adoption, then with one snapshot published at decode
+             step 20: none dropped, no new signature; every run() metric,
+             batched and single-row prefill ms (the encoder included), 20
+             profiled decode steps against the bytes bound (decoder and head
+             weights, the cross K/V and the self K/V read once), peak memory;
+  serve_phi3v  phi-3-vision-4.2B whole (32 layers, bf16, 3 824 225 280
+             parameters), 8 slots x (1024 + 128), 576 patches and 448 text
+             positions a prompt, each request its own 576 x 1024 patch
+             embeddings; serve_whisper's checks, with max_new 16 + 16 (i % 8).
+             The enc-dec phases launch none of K1-K4 (launches_encdec in the
+             kernels line).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -187,6 +220,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -219,6 +255,46 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: K1's repeat check: (W, n) shapes, each launched K1_REPEATS times on the
+#: same inputs (one-level ticket at W = 10 and 20, the folded launch with no
+#: ticket at W = 256, the two-level ticket at W = 1, n = 180 000), in this
+#: process and in K1_REPEAT_PROCESSES fresh ones
+K1_REPEAT_SHAPES = ((10, 2048), (20, 2048), (256, 2048), (1, 180_000))
+K1_REPEATS, K1_REPEAT_PROCESSES = 200, 3
+
+
+def k1_repeat(launches: int) -> dict:
+    """Launch K1 ``launches`` times at each of K1_REPEAT_SHAPES (d = 64,
+    B = 8) on the same inputs: every launch's outputs must equal the first
+    launch's bit for bit, and the ticket counters kept between launches
+    (``ops._EDGE_SCAN_SCRATCH``) must read zero after each. Returns, per
+    shape, the launches, mismatches and nonzero counter reads."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    out = {}
+    for nw, n in K1_REPEAT_SHAPES:
+        xb = torch.randint(0, 8, (nw, n, 64), generator=g, device=dev, dtype=torch.int32)
+        w = torch.rand((nw, n), generator=g, device=dev) + 0.05
+        wy = w * torch.where(torch.rand((nw, n), generator=g, device=dev) < 0.5, 1.0, -1.0)
+        first = [a.view(torch.int32).clone() for a in ops.edge_scan(xb, wy, w, num_bins=8)]
+        counters = ops._EDGE_SCAN_SCRATCH[(dev, ops._stream(dev))][1]
+        mismatches = nonzero = 0
+        for _ in range(launches):
+            got = ops.edge_scan(xb, wy, w, num_bins=8)
+            mismatches += not all(torch.equal(a.view(torch.int32), b) for a, b in zip(got, first))
+            nonzero += int(counters.count_nonzero()) != 0
+        out[f"W{nw}_n{n}"] = {"launches": launches, "mismatches": mismatches, "counters_nonzero": nonzero,
+                              "plan": list(ops.edge_scan_plan(nw, n, torch.cuda.get_device_properties(dev)
+                                                              .multi_processor_count))}
+        del xb, w, wy, first, got
+    return out
 
 
 def engine_config(w: int, rounds: int, sparse: bool):
@@ -990,7 +1066,7 @@ def serve_phase() -> None:
         # the wall without the profiler (its own host cost would count as
         # idle), then the same work under it for the device time
         wall_ms = window(P + 1)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             prof_wall_ms = window(P + 1 + SERVE_PROFILED_STEPS)
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")) / 1e3 / SERVE_PROFILED_STEPS
@@ -1126,9 +1202,10 @@ RUN_METRICS = ("requests_completed", "dropped_requests", "req_per_s", "latency_p
                "stale_cert_gap_mean", "stale_cert_gap_max", "recompiles", "wall_s")
 
 
-def _family_pass(cfg, params, tokens, steps: int):
+def _family_pass(cfg, params, tokens, steps: int, extra: dict | None = None):
     """Loss and every gradient of one batch, prefill logits and ``steps``
-    greedy tokens (re-buffered caches, in-place decode): (values, tokens)."""
+    greedy tokens (re-buffered caches, in-place decode): (values, tokens).
+    ``extra`` adds to the batch (a frontend model's ``frontend_embeds``)."""
     import torch
 
     from repro_torch.data.tokens import synthetic_token_batch
@@ -1136,14 +1213,15 @@ def _family_pass(cfg, params, tokens, steps: int):
     from repro_torch.models import decode_step, loss_fn, prefill
     from repro_torch.tree import tree_leaves, tree_map
 
+    extra = extra or {}
     leaves = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
-    loss, _ = loss_fn(leaves, cfg, synthetic_token_batch(tokens))
+    loss, _ = loss_fn(leaves, cfg, {**synthetic_token_batch(tokens), **extra})
     loss.backward()
     grads = [a.grad for a in tree_leaves(leaves)]
     b, s = tokens.shape
     with torch.no_grad():
-        logits, pre = prefill(params, cfg, {"tokens": tokens})
-        caches = rebuffer_caches(cfg, pre, b, s + steps, s, 0)
+        logits, pre = prefill(params, cfg, {"tokens": tokens, **extra})
+        caches = rebuffer_caches(cfg, pre, b, s + steps, s, cfg.frontend_len if cfg.is_encdec() else 0)
         tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         out = [tok]
         for i in range(steps - 1):
@@ -1209,20 +1287,23 @@ def families_small_ref_phase() -> None:
     log(f"phase families_small_ref ok seconds={time.perf_counter() - t0:.3f}")
 
 
-def _decode_profile(server, cfg, tokens, max_len: int, steps: int, profile_from: int):
-    """From a batched prefill of ``tokens``: ``steps`` decode steps of the
-    server's own decode step, each ending in the server's host sync, timed
-    without the profiler and then again under it. Returns (wall ms a
-    step, device ms a step, device ops a step)."""
+def _decode_profile(server, cfg, batch, max_len: int, steps: int, profile_from: int):
+    """From a batched prefill of ``batch`` (its tokens, and a frontend
+    model's embeddings): ``steps`` decode steps of the server's own decode
+    step, each ending in the server's host sync, timed without the
+    profiler and then again under it, which records the device's kernels
+    only (the host's op records add nothing to the device time and took
+    the profiler 15-25 s more to process at ~2 800 ops a step). Returns
+    (wall ms a step, device ms a step, device ops a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serving import rebuffer_caches
 
-    B, P = tokens.shape
+    B, P = batch["tokens"].shape
     with torch.no_grad():
-        tok, pre = server._prefill_fn(server.params, {"tokens": tokens})
-        caches = rebuffer_caches(cfg, pre, B, max_len, P, 0)
+        tok, pre = server._prefill_fn(server.params, batch)
+        caches = rebuffer_caches(cfg, pre, B, max_len, P, server.enc_len)
         del pre
         decode = server._decode_fn
 
@@ -1237,7 +1318,7 @@ def _decode_profile(server, cfg, tokens, max_len: int, steps: int, profile_from:
 
         window(P)  # warm
         wall_ms = window(P + steps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             window(P + 2 * steps)
     del caches, tok
     cuda = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
@@ -1247,10 +1328,13 @@ def _decode_profile(server, cfg, tokens, max_len: int, steps: int, profile_from:
 
 def _weights_read(cfg, params) -> int:
     """Bytes of the parameters one decode step reads: all but the
-    embedding table (a gather of one row a slot) and the MTP head (loss only)."""
+    embedding table (a gather of one row a slot), the MTP head (loss only)
+    and what only a prefill reads (the encoder, its norm and the frontend
+    projection)."""
     from repro_torch.tree import tree_leaves
 
-    skip = {id(params["embed"])} | ({id(params["mtp_head"])} if "mtp_head" in params else set())
+    skip = {id(a) for k in ("embed", "mtp_head", "encoder", "enc_norm", "frontend_proj") if k in params
+            for a in tree_leaves(params[k])}
     return sum(a.numel() * a.element_size() for a in tree_leaves(params) if id(a) not in skip)
 
 
@@ -1333,7 +1417,8 @@ def serve_mamba2_phase() -> None:
     with torch.no_grad():
         prefill_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks}))
         prefill1_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks[:1]}))
-    wall_ms, busy, ops_step = _decode_profile(server, cfg, toks, P + MAMBA_MAX_NEW, FAM_PROFILED_STEPS, P)
+    wall_ms, busy, ops_step = _decode_profile(server, cfg, {"tokens": toks}, P + MAMBA_MAX_NEW,
+                                              FAM_PROFILED_STEPS, P)
     # a decode step's least bytes: the weights it reads once, and the SSD
     # state and conv tails read once and written once
     read = _weights_read(cfg, server.params)
@@ -1406,7 +1491,8 @@ def serve_deepseek_phase() -> None:
     with torch.no_grad():
         prefill_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks}))
         prefill1_ms = event_ms(lambda: server._prefill_fn(server.params, {"tokens": toks[:1]}))
-    wall_ms, busy, ops_step = _decode_profile(server, cfg, toks, P + DS_MAX_NEW, FAM_PROFILED_STEPS, P)
+    wall_ms, busy, ops_step = _decode_profile(server, cfg, {"tokens": toks}, P + DS_MAX_NEW,
+                                              FAM_PROFILED_STEPS, P)
     read = _weights_read(cfg, server.params)
     latent_token_bytes = cfg.num_layers * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
     cache_read = B * (P + 2 * FAM_PROFILED_STEPS + FAM_PROFILED_STEPS // 2) * latent_token_bytes
@@ -1550,6 +1636,236 @@ def families_full_phase() -> None:
     log(f"phase families_full ok seconds={time.perf_counter() - t_phase:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# the enc-dec and VLM families (phases encdec_small_ref, serve_whisper and
+# serve_phi3v)
+# ---------------------------------------------------------------------------
+
+ENCDEC_IDS = ("whisper_large_v3", "phi3_vision_4p2b")
+#: serve_whisper: whisper-large-v3 whole (32 encoder + 32 decoder layers),
+#: slots x (prompt + max_new) = 8 x 448, whisper's decoder context
+WHISPER_SLOTS, WHISPER_PROMPT, WHISPER_MAX_NEW = 8, 64, 384
+#: serve_phi3v: phi-3-vision-4.2B whole, 8 x (1024 + 128): 576 patches
+#: and 448 text positions make up the prompt
+PHI3V_SLOTS, PHI3V_PROMPT, PHI3V_MAX_NEW = 8, 1024, 128
+#: both: the load's request count and the decode step a snapshot publishes at
+ENCDEC_REQUESTS, ENCDEC_ADOPT_AT = 24, 20
+
+
+def encdec_small_ref_phase() -> None:
+    """reduced() of whisper (encoder, cross-attention) and phi-3-vision
+    (patch splice) in float32, built on the CPU from a seed: loss, every
+    gradient, prefill logits and 16 greedy tokens on the card against the
+    CPU (tokens equal, values within rtol 1e-4 / atol 1e-5 of each
+    output's scale); then a ContinuousServer run with continuous admission
+    (10 requests over 4 slots, each with its own frontend) and one
+    adoption, card against CPU: tokens, versions and counting metrics
+    equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    counting = ("requests_completed", "dropped_requests", "decode_steps", "decode_tokens", "adoptions",
+                "adoption_steps", "recompiles")
+    for arch in ENCDEC_IDS:
+        cfg = reduced(get_config(arch))
+        params, snap = init_params(cfg, SEED, "cpu"), init_params(cfg, SEED + 1, "cpu")
+        rng = np.random.default_rng(SEED)
+        fshape = (cfg.frontend_len, cfg.frontend_dim)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, FAM_PROMPT), dtype=np.int32))
+        fe = torch.from_numpy(rng.standard_normal((2, *fshape), dtype=np.float32) * 0.02)
+        cpu_vals, cpu_toks = _family_pass(cfg, params, tokens, FAM_DECODE, {"frontend_embeds": fe})
+        gpu = tree_map(lambda a: a.to("cuda"), params)
+        vals, toks = _family_pass(cfg, gpu, tokens.to("cuda"), FAM_DECODE, {"frontend_embeds": fe.to("cuda")})
+        torch.cuda.synchronize()
+        errs = [float((g.cpu() - c).abs().max()) for g, c in zip(vals, cpu_vals)]
+        close = all(torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-5 * max(1.0, float(c.abs().max())))
+                    for g, c in zip(vals, cpu_vals))
+        same_toks = torch.equal(toks.cpu(), cpu_toks)
+        prompts = rng.integers(0, cfg.vocab, (10, 24), dtype=np.int32)
+        fes = rng.standard_normal((10, *fshape), dtype=np.float32) * 0.02
+        scfg = ServingConfig(slots=4, prompt_len=24, max_new=8, seed=SEED)
+        runs = {}
+        for name in ("cpu", "cuda"):
+            own = tree_map(lambda a: a.to(name, copy=True), params)
+            server = ContinuousServer(cfg, scfg, own, device=name)
+            server.warmup()
+            slot = AdoptionSlot()
+
+            def hook(_, step, slot=slot):
+                if step == 3:
+                    slot.publish(snap, cert=1.0, round=3)
+
+            reqs = [Request(rid=i, prompt=prompts[i], max_new=2 + i % 7, frontend=fes[i]) for i in range(10)]
+            runs[name] = server.run(reqs, slot=slot, step_hook=hook)
+        (cres, cm), (gres, gm) = runs["cpu"], runs["cuda"]
+        server_same = (_tokens_of(gres) == _tokens_of(cres)
+                       and [r.versions for r in gres] == [r.versions for r in cres]
+                       and {k: gm[k] for k in counting} == {k: cm[k] for k in counting})
+        log(f"phase encdec_small_ref arch={arch} leaves={len(vals) - 2} tokens_equal_cpu={same_toks} "
+            f"loss_err={errs[0]:.3g} logits_err={errs[1]:.3g} grads_max_abs_err={max(errs[2:]):.3g} "
+            f"within_tolerance={close} server_equal_cpu={server_same} server_adoptions={gm['adoptions']} "
+            f"server_decode_steps={gm['decode_steps']} tokens={toks[0].tolist()}")
+        if not (close and same_toks and server_same and gm["adoptions"] == 1 and gm["dropped_requests"] == 0):
+            raise AssertionError(f"encdec_small_ref {arch}: within tolerance {close}, tokens {same_toks}, "
+                                 f"server {server_same}, {gm}")
+    log(f"phase encdec_small_ref ok seconds={time.perf_counter() - t0:.3f}")
+
+
+def _serve_frontend_model(phase: str, arch: str, B: int, P: int, max_new: int, load_new: list,
+                          n_params_want: int) -> None:
+    """One model with a frontend at full width and depth in bf16 through
+    ContinuousServer (B slots x (P + max_new)), each request with its own
+    stub frontend drawn from a seed (x 0.02): the signatures after warmup,
+    row independence with frontends, the frontend changing the first
+    logits, the load without and then with one adoption, prefill and
+    decode times against the decode step's bytes bound, peak memory."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
+    from repro_torch.launch.steps import dryrun_cfg
+    from repro_torch.models import init_params, param_count, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dryrun_cfg(get_config(arch))
+    n_rows = ENCDEC_REQUESTS + B
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (n_rows, P), dtype=np.int32)
+    frontends = rng.standard_normal((n_rows, cfg.frontend_len, cfg.frontend_dim), dtype=np.float32) * 0.02
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = init_params(cfg, SEED + 1, "cuda")
+    snap = tree_map(lambda a: a.to("cpu"), p)
+    del p
+    torch.cuda.empty_cache()
+    snap_s = time.perf_counter() - t0
+    params = init_params(cfg, SEED, "cuda")
+    n_params = param_count(params)
+    param_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    kv_token_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.hd() * 2  # self K and V, bf16
+    cross_bytes = B * cfg.frontend_len * kv_token_bytes if cfg.is_encdec() else 0
+    log(f"phase {phase} model arch={cfg.name} layers={cfg.num_layers} encoder_layers={cfg.encoder_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads} "
+        f"frontend={cfg.frontend}x({cfg.frontend_len},{cfg.frontend_dim}) params={n_params} "
+        f"param_bytes={param_bytes} dtype={cfg.param_dtype}/{cfg.compute_dtype} slots={B} prompt={P} "
+        f"max_new={max_new} cross_kv_bytes={cross_bytes} snapshot_to_host_s={snap_s:.3f}")
+    if n_params != n_params_want:
+        raise AssertionError(f"{phase}: {n_params} parameters")
+
+    def batch(rows):
+        toks = torch.from_numpy(prompts[rows]).to("cuda")
+        return {"tokens": toks, "frontend_embeds": torch.from_numpy(frontends[rows]).to("cuda")}
+
+    def reqs(rows, news):
+        return [Request(rid=i, prompt=prompts[r], max_new=m, frontend=frontends[r])
+                for i, (r, m) in enumerate(zip(rows, news))]
+
+    server = ContinuousServer(cfg, ServingConfig(slots=B, prompt_len=P, max_new=max_new, seed=SEED), params,
+                              device="cuda")
+    warm_s = server.warmup()
+    counts = server.compile_counts()
+    log(f"phase {phase} warmup_s={warm_s:.3f} compile_counts={json.dumps(counts)}")
+    if counts != {"prefill": 2, "decode": 1, "insert": 1}:
+        raise AssertionError(f"{phase}: signatures after warmup {counts}")
+
+    # row independence with frontends: row 0's request beside other
+    # requests; a request admitted into a retired row (stale self K/V
+    # beyond its prefix, the last occupant's cross K/V) and into a row
+    # that holds zeros there
+    g, late = 32, 2 * B - 1
+    t0 = time.perf_counter()
+    a, _ = server.run(reqs(range(B), [g] * B))
+    b, _ = server.run(reqs([0] + list(range(B, late)), [g] * B))
+    stale, _ = server.run(reqs(list(range(B)) + [late], [24] + [2 * g] * (B - 1) + [g]))
+    fresh, _ = server.run(reqs(list(range(B)) + [late], [1] + [2 * g] * (B - 1) + [g]))
+    rows_ok = np.array_equal(a[0].tokens, b[0].tokens) and not np.array_equal(a[1].tokens, b[1].tokens)
+    stale_ok = np.array_equal(stale[B].tokens, fresh[B].tokens)
+    # the frontend is live: one prompt, two frontends, two first logits
+    two = batch([0, 1])
+    two["tokens"] = two["tokens"][:1].expand(2, P).contiguous()
+    with torch.no_grad():
+        first = prefill(server.params, cfg, two)[0][:, -1]
+    frontend_diff = float((first[0] - first[1]).abs().max())
+    log(f"phase {phase} row_independence row0_equal={rows_ok} stale_row_admission_equal={stale_ok} "
+        f"same_prompt_two_frontends_first_logits_max_abs_diff={frontend_diff:.4g} "
+        f"seconds={time.perf_counter() - t0:.3f}")
+    if not (rows_ok and stale_ok and frontend_diff > 0.0):
+        raise AssertionError(f"{phase}: row independence {rows_ok}, stale-row admission {stale_ok}, "
+                             f"frontend changes the logits by {frontend_diff}")
+    del a, b, stale, fresh, first
+
+    # the load: without adoption, then with one snapshot published mid-run
+    rows = list(range(ENCDEC_REQUESTS))
+    base, base_m = server.run(reqs(rows, load_new))
+    slot = AdoptionSlot()
+
+    def hook(_, step):
+        if step == ENCDEC_ADOPT_AT:
+            slot.publish(snap, cert=1.0, round=step)
+
+    ptrs = [x.data_ptr() for x in tree_leaves(server.params)]
+    results, m = server.run(reqs(rows, load_new), slot=slot, step_hook=hook)
+    swapped = [x.data_ptr() for x in tree_leaves(server.params)] == ptrs
+    changed = sum(not np.array_equal(x.tokens, y.tokens) for x, y in zip(results, base))
+    log(f"phase {phase} load_no_adoption {json.dumps({k: base_m[k] for k in RUN_METRICS})}")
+    log(f"phase {phase} load_adoption {json.dumps({k: m[k] for k in RUN_METRICS})} "
+        f"requests_changed={changed} params_swapped_in_place={swapped}")
+    for name, mm, want in (("no_adoption", base_m, 0), ("adoption", m, 1)):
+        if not (mm["dropped_requests"] == 0 and mm["recompiles"] == 0 and mm["adoptions"] == want
+                and mm["requests_completed"] == ENCDEC_REQUESTS):
+            raise AssertionError(f"{phase} {name}: {mm}")
+    if not (swapped and changed > 0 and all(len(r.tokens) == n for r, n in zip(base, load_new))):
+        raise AssertionError(f"{phase}: adoption in place {swapped}, {changed} requests changed")
+    del snap, slot, results, base
+    gc.collect()
+
+    # prefill times (the encoder included) and a profiled decode window
+    bb, b1 = batch(slice(0, B)), batch(slice(0, 1))
+    with torch.no_grad():
+        prefill_ms = event_ms(lambda: server._prefill_fn(server.params, bb))
+        prefill1_ms = event_ms(lambda: server._prefill_fn(server.params, b1))
+    steps = FAM_PROFILED_STEPS
+    wall_ms, busy, ops_step = _decode_profile(server, cfg, bb, P + max_new, steps, P)
+    # a decode step's least bytes: the weights it reads once, the cross K/V
+    # read once, and the self K/V of the timed window's positions read once
+    read = _weights_read(cfg, server.params)
+    self_kv = sum(B * (P + steps + i + 1) * kv_token_bytes for i in range(steps)) / steps
+    bound_ms = (read + cross_bytes + self_kv) / HBM_BYTES_PER_S * 1e3
+    log(f"phase {phase} prefill_ms batched={prefill_ms:.3f} ({B}x{P}, frontends {B}x{cfg.frontend_len}) "
+        f"single_row={prefill1_ms:.3f}")
+    log(f"phase {phase} decode_profile steps={steps} wall_ms_per_step={wall_ms:.3f} "
+        f"device_ms_per_step={busy:.3f} device_idle_share={1 - busy / wall_ms:.4f} "
+        f"device_ops_per_step={ops_step:.0f} bytes_bound_ms={bound_ms:.3f} (weights {read} B + cross K/V "
+        f"{cross_bytes} B + self K/V {self_kv:.0f} B at {HBM_BYTES_PER_S:.3g} B/s) "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del server, params, bb, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase {phase} ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+def serve_whisper_phase() -> None:
+    _serve_frontend_model("serve_whisper", "whisper_large_v3", WHISPER_SLOTS, WHISPER_PROMPT, WHISPER_MAX_NEW,
+                          [32 + 32 * (i % 8) for i in range(ENCDEC_REQUESTS)], 1_601_154_560)
+
+
+def serve_phi3v_phase() -> None:
+    _serve_frontend_model("serve_phi3v", "phi3_vision_4p2b", PHI3V_SLOTS, PHI3V_PROMPT, PHI3V_MAX_NEW,
+                          [16 + 16 * (i % 8) for i in range(ENCDEC_REQUESTS)], 3_824_225_280)
+
+
 def main() -> int:
     import torch
 
@@ -1558,6 +1874,9 @@ def main() -> int:
         print("phase device FAILED: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--k1-repeat"]:  # one fresh process of K1's repeat check
+        print(json.dumps(k1_repeat(int(sys.argv[2]))), flush=True)
+        return 0
     from repro_torch.kernels import build, ops, ref, scatter_model_slice
 
     dev = torch.device("cuda")
@@ -1704,6 +2023,39 @@ def main() -> int:
         if nw == 10:
             records["edge_scan"]["library_device_ms"] = lib_dev_ms
         del xb, w, y, wy, flat, src, buf, got, again, plain
+
+    # K1's repeat check (its ticket counters live between launches): here,
+    # then in fresh processes, then under compute-sanitizer's racecheck
+    # where the machine has it (recorded, whichever way it ends)
+    t0 = time.perf_counter()
+    repeats = {"this_process": k1_repeat(K1_REPEATS)}
+    for i in range(K1_REPEAT_PROCESSES):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--k1-repeat", str(K1_REPEATS)],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(f"K1 repeat process {i} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        repeats[f"fresh_process_{i}"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"phase kernels K1 repeat {json.dumps(repeats)} seconds={time.perf_counter() - t0:.3f}")
+    bad = {k: v for k, v in repeats.items()
+           if any(s["mismatches"] or s["counters_nonzero"] for s in v.values())}
+    if bad:
+        raise AssertionError(f"K1 repeat: launches differ or counters left set: {bad}")
+    sanitizer = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+    if Path(sanitizer).is_file():
+        cmd = [sanitizer, "--tool", "racecheck", sys.executable, str(ROOT / "chip_smoke.py"),
+               "--k1-repeat", "2"]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=120)
+            tail = " | ".join(text.strip().splitlines()[-3:])
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            tail = "timed out after 120 s"
+        log(f"phase kernels K1 racecheck tool={sanitizer} rc={proc.returncode} last_lines={tail!r}")
+    else:
+        log("phase kernels K1 racecheck tool=absent (no compute-sanitizer on this machine)")
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -2611,6 +2963,16 @@ def main() -> int:
     log(f"phase families launches={json.dumps(family_launches)}")
     for k, rec in records.items():
         rec["launches_families"] = family_launches[k]
+
+    # ------------------------------------------------ the enc-dec and VLM families
+    ops.reset_launches()
+    encdec_small_ref_phase()
+    serve_whisper_phase()
+    serve_phi3v_phase()
+    encdec_launches = dict(ops.LAUNCHES)
+    log(f"phase encdec launches={json.dumps(encdec_launches)}")
+    for k, rec in records.items():
+        rec["launches_encdec"] = encdec_launches[k]
 
     log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

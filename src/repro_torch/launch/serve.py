@@ -19,9 +19,11 @@ ensemble. Runs on the card unless ``--device cpu`` is asked for:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --reduced \\
       --batch 2 --prompt-len 16 --gen 16
 
-Every decoder-only family serves (``--arch mamba2-1.3b``,
-``deepseek-v3-671b``, ``gemma3-12b``, ``zamba2-1.2b``, ``grok-1-314b``);
-whisper and phi-3-vision raise (ROADMAP.md queue 1, item 14b).
+Every family serves (``--arch mamba2-1.3b``, ``deepseek-v3-671b``,
+``gemma3-12b``, ``zamba2-1.2b``, ``grok-1-314b``, ``whisper-large-v3``,
+``phi-3-vision-4.2b``). A model with a frontend gets one stub embedding
+block per request, as the reference's ``serve`` draws them: float32
+``N(0, 1) * 0.02`` of shape (frontend_len, frontend_dim).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import PORTED_ARCH_IDS, get_config, reduced
-from repro_torch.data.tokens import stream_tokens
+from repro_torch.data.tokens import stream_frontend, stream_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.serving import AdoptionSlot, ContinuousServer, Request, ServingConfig
 from repro_torch.models import init_params
@@ -50,13 +52,16 @@ def serve(
     slot: AdoptionSlot | None = None,
     params: Any = None,
     prompts: Any = None,
+    frontends: Any = None,
     device: str | torch.device = "cuda",
 ):
     """Generate ``gen`` tokens (the prefill token + ``gen - 1`` decode
     steps) for ``batch`` prompts. ``params`` default to
-    ``init_params(cfg, seed)`` and ``prompts`` ((batch, prompt_len) ints)
-    to draw 1 of token stream ``seed``; a caller can hand in its own (the
-    tests hand in the reference's draws). Returns generated tokens plus
+    ``init_params(cfg, seed)``, ``prompts`` ((batch, prompt_len) ints)
+    to draw 1 of token stream ``seed`` and, for a model with a frontend,
+    ``frontends`` ((batch, frontend_len, frontend_dim) floats) to draw 2
+    of its frontend stream; a caller can hand in its own (the tests hand
+    in the reference's draws). Returns generated tokens plus
     compile/prefill/decode timings, each measuring only what its name
     says."""
     dev = resolve_device(device)
@@ -65,6 +70,12 @@ def serve(
     if prompts is None:
         prompts = stream_tokens(seed, 1, (batch, prompt_len), cfg.vocab, dev)
     prompts_h = np.asarray(prompts.cpu() if isinstance(prompts, torch.Tensor) else prompts, np.int32)
+    fes = [None] * batch
+    if cfg.frontend is not None:
+        if frontends is None:
+            frontends = stream_frontend(seed, 2, (batch, cfg.frontend_len, cfg.frontend_dim), dev)
+        fes = list(np.asarray(frontends.cpu() if isinstance(frontends, torch.Tensor) else frontends,
+                              np.float32))
 
     scfg = ServingConfig(
         slots=batch,
@@ -76,7 +87,7 @@ def serve(
     )
     server = ContinuousServer(cfg, scfg, params, device=dev)
     compile_s = server.warmup()
-    requests = [Request(rid=i, prompt=prompts_h[i], max_new=gen) for i in range(batch)]
+    requests = [Request(rid=i, prompt=prompts_h[i], max_new=gen, frontend=fes[i]) for i in range(batch)]
     results, metrics = server.run(requests, slot=slot)
     gen_tokens = np.stack([r.tokens for r in results])  # (batch, gen), rid order
     return {

@@ -34,10 +34,12 @@ reference donates them, ``donate_argnums=(2,)``): the decode step
 writes each new K/V entry into its slot of the stacked buffers, and an
 admitted request's prefix is a slice assignment into its row. The
 server runs on the card (``device="cuda"``) unless the caller asks for
-the CPU, and raises without a card. Every decoder-only family: GQA K/V
-(full or a sliding window's ring), MLA latents and SSD state; the
-reference's cross-attention and frontend branches raise (ROADMAP.md
-queue 1, item 14b).
+the CPU, and raises without a card. Every family of the zoo: GQA K/V
+(full or a sliding window's ring), MLA latents, SSD state, and an
+enc-dec decoder's cross-attention K/V, which a request's prefill computes
+from its own frontend (``Request.frontend``) and which stay as they are
+until the row's next admission. A model with a frontend takes each
+request's stub embeddings; a request without one gets zeros.
 """
 
 from __future__ import annotations
@@ -56,7 +58,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_cache
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import check_supported
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -67,8 +68,9 @@ from repro_torch.tree import tree_leaves, tree_map
 
 def _prefix(b_full: torch.Tensor, b_pre: torch.Tensor) -> tuple[tuple, torch.Tensor]:
     """Where a prefill cache entry lands in its decode buffer, batch rows
-    aside: (the index of dims 2.., the block to write). SSD state and
-    conv tails have the buffer's shape there and land whole; K/V and MLA
+    aside: (the index of dims 2.., the block to write). SSD state, conv
+    tails and cross-attention K/V (enc_len long on both sides) have the
+    buffer's shape there and land whole; self-attention K/V and MLA
     latents are a prompt prefix along dim 2. A prompt longer than a
     sliding window's ring (``windowed_cache``) keeps its last S
     positions, each at slot ``position % S``, as decode writes them."""
@@ -80,14 +82,14 @@ def _prefix(b_full: torch.Tensor, b_pre: torch.Tensor) -> tuple[tuple, torch.Ten
 
 def rebuffer_caches(cfg, prefill_caches, batch: int, max_len: int, prompt_len: int, enc_len: int):
     """Copy prefill caches (sized to the prompt) into zeroed max_len
-    buffers on the prefill caches' device: SSD state and conv tails
-    whole (the reference's ``serving.py:61``), each self-attention K/V
-    and MLA latent cache the prompt prefix along its sequence axis, and
-    a sliding window's ring (``cfg.windowed_cache``) the prompt's last
-    window positions at their ring slots. ``enc_len`` (the
-    cross-attention length) is 0 for every model the port has."""
-    check_supported(cfg)  # cross-attention K/V and frontends: item 14b
-    full = init_cache(cfg, batch, max_len, device=tree_leaves(prefill_caches)[0].device)
+    buffers on the prefill caches' device: SSD state, conv tails and
+    cross-attention K/V whole (static entries, the reference's
+    ``serving.py:61,66``), each self-attention K/V and MLA latent cache
+    the prompt prefix along its sequence axis, and a sliding window's
+    ring (``cfg.windowed_cache``) the prompt's last window positions at
+    their ring slots. ``enc_len`` is the cross-attention length (the
+    encoder's ``frontend_len``; 0 without an encoder)."""
+    full = init_cache(cfg, batch, max_len, device=tree_leaves(prefill_caches)[0].device, enc_len=enc_len)
     for seg_full, seg_pre in zip(full, prefill_caches):
         for buf_full, buf_pre in zip(seg_full, seg_pre):
             for b_full, b_pre in zip(buf_full, buf_pre):
@@ -101,8 +103,9 @@ def _insert_row(caches, pre_caches, row: int):
     row ``row`` of the full decode buffers, in place; returns them.
 
     The batch-1 block lands at (0, row, 0, ...): a full row overwrite
-    for SSD state and conv tails (their shapes match but for the batch)
-    and a prompt-prefix write for self-attention K/V and MLA latents (the
+    for SSD state, conv tails and cross-attention K/V (their shapes
+    match but for the batch) and a prompt-prefix write for
+    self-attention K/V and MLA latents (the
     pre block is shorter along the seq axis; a ring keeps the last
     window, as :func:`rebuffer_caches` does). Stale entries beyond the
     prefix belong to the row's previous occupant and sit at key
@@ -188,12 +191,15 @@ class Request:
     """One generation request. ``prompt`` must be (prompt_len,) int —
     the batcher keeps fixed shapes, so all requests share the server's
     prompt length. ``max_new`` counts generated tokens *including* the
-    prefill-produced first token; it must be in [1, cfg.max_new]. (The
-    reference's ``frontend`` embeddings come with item 14b's models.)"""
+    prefill-produced first token; it must be in [1, cfg.max_new].
+    ``frontend`` is the request's stub frontend embeddings
+    (frontend_len, frontend_dim) for a model with a frontend (zeros when
+    None)."""
 
     rid: int
     prompt: np.ndarray
     max_new: int
+    frontend: np.ndarray | None = None  # (frontend_len, frontend_dim)
 
 
 @dataclasses.dataclass
@@ -286,11 +292,11 @@ class ContinuousServer:
 
     def __init__(self, cfg: ArchConfig, scfg: ServingConfig, params: Any, device: str | torch.device = "cuda",
                  noise: Callable[[int], torch.Tensor] | None = None) -> None:
-        check_supported(cfg)
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(device)
         self.params = tree_map(lambda a: a.detach().to(self.device), params)
+        self.enc_len = cfg.frontend_len if cfg.is_encdec() else 0
         self.max_len = scfg.prompt_len + scfg.max_new
         self._prefill_fn = make_prefill_step(cfg)
         self._decode_fn = make_decode_step(cfg, greedy=scfg.greedy, temperature=scfg.temperature)
@@ -304,10 +310,16 @@ class ContinuousServer:
 
     # -- plumbing -----------------------------------------------------------
 
-    def _batchify(self, prompts: list[np.ndarray]) -> dict:
+    def _batchify(self, prompts: list[np.ndarray], frontends: list) -> dict:
         toks = torch.from_numpy(np.stack(prompts).astype(np.int32)).to(self.device)
-        return {"tokens": toks, "labels": toks, "mask": torch.ones(toks.shape, dtype=torch.float32,
-                                                                   device=self.device)}
+        b = {"tokens": toks, "labels": toks,
+             "mask": torch.ones(toks.shape, dtype=torch.float32, device=self.device)}
+        if self.cfg.frontend is not None:
+            shape = (self.cfg.frontend_len, self.cfg.frontend_dim)
+            fes = [np.zeros(shape, np.float32) if fe is None else np.asarray(fe, np.float32)
+                   for fe in frontends]
+            b["frontend_embeds"] = torch.from_numpy(np.stack(fes)).to(self.device)
+        return b
 
     def _prefill(self, params, batch):
         self._sigs["prefill"].add(_signature(params, batch))
@@ -342,10 +354,10 @@ class ContinuousServer:
         returns the wall time spent (reported as ``compile_s``). Idempotent."""
         t0 = time.perf_counter()
         B, P = self.scfg.slots, self.scfg.prompt_len
-        zeros = [np.zeros(P, np.int32) for _ in range(B)]
-        tok, pre = self._prefill(self.params, self._batchify(zeros))
-        caches = rebuffer_caches(self.cfg, pre, B, self.max_len, P, 0)
-        _, pre1 = self._prefill(self.params, self._batchify(zeros[:1]))
+        zeros, nones = [np.zeros(P, np.int32) for _ in range(B)], [None] * B
+        tok, pre = self._prefill(self.params, self._batchify(zeros, nones))
+        caches = rebuffer_caches(self.cfg, pre, B, self.max_len, P, self.enc_len)
+        _, pre1 = self._prefill(self.params, self._batchify(zeros[:1], nones[:1]))
         caches = self._insert(caches, pre1, 0)
         pos = torch.from_numpy(np.full((B,), P, np.int32)).to(self.device)
         tok, caches = self._decode(self.params, tok, caches, pos, self._gumbel(0))
@@ -440,13 +452,14 @@ class ContinuousServer:
         t0 = time.perf_counter()
         if len(pending) >= B:
             wave = [pending.popleft() for _ in range(B)]
-            ntok, pre = self._prefill(self.params, self._batchify([r.prompt for r in wave]))
-            caches = rebuffer_caches(self.cfg, pre, B, self.max_len, P, 0)
+            ntok, pre = self._prefill(self.params, self._batchify([r.prompt for r in wave],
+                                                                  [r.frontend for r in wave]))
+            caches = rebuffer_caches(self.cfg, pre, B, self.max_len, P, self.enc_len)
             ntok_h = ntok.cpu().numpy()
             for s, r in enumerate(wave):
                 bookkeep_admit(s, r, int(ntok_h[s, 0]))
         else:
-            caches = init_cache(self.cfg, B, self.max_len, device=self.device)
+            caches = init_cache(self.cfg, B, self.max_len, device=self.device, enc_len=self.enc_len)
         prefill_s += time.perf_counter() - t0
 
         step = 0
@@ -457,7 +470,7 @@ class ContinuousServer:
                 while not active[s] and pending:
                     req = pending.popleft()
                     t0 = time.perf_counter()
-                    ntok1, pre1 = self._prefill(self.params, self._batchify([req.prompt]))
+                    ntok1, pre1 = self._prefill(self.params, self._batchify([req.prompt], [req.frontend]))
                     caches = self._insert(caches, pre1, s)
                     prefill_s += time.perf_counter() - t0
                     bookkeep_admit(s, req, int(ntok1[0, 0]))

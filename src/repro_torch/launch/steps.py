@@ -67,9 +67,10 @@ def decode_specs(cfg: ArchConfig, shape_name: str) -> dict[str, Any]:
     """Meta tensors for one decode step: token, caches, pos."""
     seq, gb, kind = INPUT_SHAPES[shape_name]
     assert kind == "decode"
+    enc_len = cfg.frontend_len if cfg.is_encdec() else 0
     return {
         "token": _meta((gb, 1), torch.int32),
-        "caches": init_cache(cfg, gb, seq, device="meta"),
+        "caches": init_cache(cfg, gb, seq, device="meta", enc_len=enc_len),
         "pos": _meta((), torch.int32),
     }
 
@@ -92,7 +93,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig) -> Callable:
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
-    """``prefill_step(params, batch) -> (next_token (b, 1) int32, caches)``."""
+    """``prefill_step(params, batch) -> (next_token (b, 1) int32, caches)``;
+    ``batch["frontend_embeds"]`` feeds the encoder or the patch splice of
+    a model with a frontend."""
 
     @torch.no_grad()
     def prefill_step(params, batch):

@@ -1,11 +1,12 @@
-"""Grouped-query attention (optionally sliding-window) and MLA
-(DeepSeek-V3 multi-head latent attention, compressed KV cache),
-full-sequence and single-token decode; counterpart of the GQA and MLA
-parts of ``src/repro/models/attention.py``. Cross-attention waits for
-ROADMAP.md queue 1, item 14b.
+"""Grouped-query attention (optionally sliding-window), MLA (DeepSeek-V3
+multi-head latent attention, compressed KV cache), full-sequence and
+single-token decode, and the enc-dec decoder's cross-attention;
+counterpart of ``src/repro/models/attention.py``.
 
 All shapes: x (b, s, d); caches are (b, S_max, K, hd) for GQA and
-(b, S_max, kv_lora_rank), (b, S_max, qk_rope_head_dim) for MLA. The decode-path
+(b, S_max, kv_lora_rank), (b, S_max, qk_rope_head_dim) for MLA;
+cross-attention's K/V are (b, enc_len, K, hd), computed once from the
+encoder's output at prefill and read whole at every decode step. The decode-path
 ``pos`` write index is either a () scalar (batch decodes in lockstep)
 or a (b,) vector (continuous batching: each row at its own depth). A
 scalar is broadcast to (b,), so scalar-pos decode is the per-row write
@@ -256,3 +257,35 @@ def mla_decode(
     out = _mla_attend(params, q_lat, q_rope, cache_ckv.to(x.dtype), cache_krope.to(x.dtype), mask, cfg,
                       x.dtype)
     return out, cache_ckv, cache_krope
+
+
+# ----------------------------------------------------------------------------
+# Cross-attention (enc-dec decoder layers)
+# ----------------------------------------------------------------------------
+
+
+def init_cross(generator, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) -> dict:
+    return init_gqa(generator, cfg, dtype, device, lead)
+
+
+def cross_kv(params: dict, enc: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder side's K/V (b, enc_len, K, hd), once a request
+    (prefill); no RoPE, as in the reference."""
+    b, s, _ = enc.shape
+    hd = cfg.hd()
+    K = cfg.num_kv_heads
+    k = torch.matmul(enc, params["wk"].to(enc.dtype)).reshape(b, s, K, hd)
+    v = torch.matmul(enc, params["wv"].to(enc.dtype)).reshape(b, s, K, hd)
+    return k, v
+
+
+def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Every decoder position attends to every encoder position."""
+    b, s, _ = x.shape
+    hd = cfg.hd()
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q = torch.matmul(x, params["wq"].to(x.dtype)).reshape(b, s, K, H // K, hd)
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)  # full visibility of the encoder
+    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), mask, hd ** -0.5).reshape(b, s, H * hd)
+    return torch.matmul(out, params["wo"].to(x.dtype))

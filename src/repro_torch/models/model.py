@@ -1,15 +1,24 @@
 """Top-level model API: init_params / loss_fn / prefill / decode_step;
-counterpart of ``src/repro/models/model.py`` for decoder-only models
-(dense, MoE, SSM, hybrid, sliding-window; DeepSeek's MTP head).
+counterpart of ``src/repro/models/model.py`` for the whole zoo:
+decoder-only models (dense, MoE, SSM, hybrid, sliding-window; DeepSeek's
+MTP head), enc-dec (whisper: the encoder consumes stub frontend
+embeddings, the decoder cross-attends) and VLM (phi-3-vision: stub patch
+embeddings, projected, replace the first ``frontend_len`` positions'
+token embeddings, so the global (b, s) shape does not change).
 
 The parameters are a plain dict whose tree mirrors the reference's,
 ``{"embed", "final_norm", "decoder": [[layer dict stacked over
 repeats, or None at a shared_attn position]], "lm_head",
-"shared_attn", "mtp_head"}`` (no ``lm_head`` with tied embeddings,
-``shared_attn`` for hybrids only, ``mtp_head`` with ``mtp_depth``), so
-the round engine carries it as a stacked ``(W, ...)`` pytree and
-:mod:`repro_torch.convert` maps it leaf for leaf. Enc-dec models and
-modality frontends raise until ROADMAP.md queue 1, item 14b.
+"shared_attn", "encoder", "enc_norm", "frontend_proj", "mtp_head"}``
+(no ``lm_head`` with tied embeddings, ``shared_attn`` for hybrids only,
+``encoder`` and ``enc_norm`` for enc-dec, ``frontend_proj`` with a
+frontend, ``mtp_head`` with ``mtp_depth``), so the round engine carries
+it as a stacked ``(W, ...)`` pytree and :mod:`repro_torch.convert` maps
+it leaf for leaf.
+
+The encoder is causal, as the reference's is: it runs the decoder's
+``gqa_full`` (``src/repro/models/model.py:104``), and the port keeps
+that so that the two agree.
 
 MTP is the reference's simplified multi-token prediction: a projection
 of the trunk's last hidden state predicts token t+2 through the shared
@@ -25,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves
-from repro_torch.models.config import ArchConfig, layer_segments, validate
+from repro_torch.models.config import ArchConfig, encoder_segments, layer_segments, validate
 from repro_torch.models.layers import (
     init_embedding,
     init_linear,
@@ -35,7 +44,6 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.transformer import (
-    check_layer,
     decode_stack,
     forward_stack,
     init_segments,
@@ -49,16 +57,6 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for every model feature the port does not carry yet."""
-    for feature, on in (("frontend", cfg.frontend is not None), ("enc-dec", cfg.is_encdec())):
-        if on:
-            raise NotImplementedError(f"{cfg.name}: {feature} is not ported yet (ROADMAP item 14b)")
-    for unit, _ in layer_segments(cfg):
-        for spec in unit:
-            check_layer(spec)
-
-
 # ----------------------------------------------------------------------------
 # init
 # ----------------------------------------------------------------------------
@@ -69,7 +67,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, device="c
     ``generator`` (a ``torch.Generator`` on that device, or an int seed).
     ``device="meta"`` builds the shapes only and touches no memory."""
     validate(cfg)
-    check_supported(cfg)
     dev = torch.device(device) if torch.device(device).type == "meta" else resolve_device(device)
     if isinstance(generator, int):
         seed = generator
@@ -87,6 +84,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, device="c
         params["lm_head"] = init_linear(generator, cfg.d_model, cfg.padded_vocab(), dtype, dev)
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = init_shared_attn(generator, cfg, dtype, dev)
+    if cfg.is_encdec():
+        params["encoder"] = init_segments(generator, encoder_segments(cfg), cfg, dtype, dev)
+        params["enc_norm"] = init_rms_norm(cfg.d_model, dtype, dev)
+    if cfg.frontend is not None:
+        params["frontend_proj"] = init_linear(generator, cfg.frontend_dim, cfg.d_model, dtype, dev)
     if cfg.mtp_depth:
         params["mtp_head"] = init_linear(generator, cfg.d_model, cfg.d_model, dtype, dev)
     return params
@@ -97,15 +99,41 @@ def param_count(params) -> int:
 
 
 # ----------------------------------------------------------------------------
-# embedding / logits
+# embedding / frontend splicing / encoder / logits
 # ----------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _frontend(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The stub frontend embeddings (b, frontend_len, frontend_dim),
+    projected to (b, frontend_len, d_model) in the compute dtype."""
+    cdt = dtype_of(cfg.compute_dtype)
+    return torch.matmul(batch["frontend_embeds"].to(cdt), params["frontend_proj"].to(cdt))
+
+
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor, batch: dict | None = None) -> torch.Tensor:
     # F.embedding, not advanced indexing: its CUDA backward sorts the
     # indices and sums each row in a fixed order, where indexing's
     # accumulating index_put_ would add with atomics (bits vary run to run)
-    return F.embedding(tokens.to(torch.int64), params["embed"]).to(dtype_of(cfg.compute_dtype))
+    x = F.embedding(tokens.to(torch.int64), params["embed"]).to(dtype_of(cfg.compute_dtype))
+    if cfg.frontend == "vision" and batch is not None and "frontend_embeds" in batch:
+        proj = _frontend(params, cfg, batch)
+        b, s = tokens.shape
+        f = proj.shape[1]
+        if f < s:  # the patches, then zeros (masked out below)
+            proj = torch.cat([proj, proj.new_zeros((b, s - f, cfg.d_model))], dim=1)
+        else:  # a prompt shorter than the patches keeps the first s
+            proj = proj[:, :s]
+        is_patch = (torch.arange(s, device=x.device) < f)[None, :, None]
+        x = torch.where(is_patch, proj, x)
+    return x
+
+
+def _encode(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Whisper-style encoder over the stub audio frame embeddings; causal,
+    as the reference's (see the module doc)."""
+    x = _frontend(params, cfg, batch)
+    x, _, _ = forward_stack(params["encoder"], encoder_segments(cfg), cfg, x, _positions(x))
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -121,7 +149,7 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
 
 
@@ -132,10 +160,10 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
     tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
-    check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, batch)
+    enc_out = _encode(params, cfg, batch) if cfg.is_encdec() else None
     x, aux, _ = forward_stack(params["decoder"], layer_segments(cfg), cfg, x, _positions(tokens),
-                              shared_params=params.get("shared_attn"))
+                              shared_params=params.get("shared_attn"), enc_out=enc_out)
     loss = softmax_cross_entropy(_logits(params, cfg, x), labels, mask)
     metrics = {"ce_loss": loss, "aux_loss": aux}
     if cfg.mtp_depth:
@@ -157,7 +185,7 @@ def loss_fn(params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
 # ----------------------------------------------------------------------------
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> list:
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda", enc_len: int = 0) -> list:
     """Zeroed decode caches matching the decode_stack layout: per
     segment, per unit position, a pair stacked over repeats: (k, v) of
     shape (reps, batch, S, K, hd) for GQA, (c_kv, k_rope) of shape
@@ -165,8 +193,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> list
     for MLA, both in the compute dtype; for SSD the float32 state (reps,
     batch, H, N, P) and the conv tail (reps, batch, conv_width - 1,
     conv channels) in the compute dtype. A sliding-window layer gets a
-    ring of its window's size under ``cfg.windowed_cache``."""
-    check_supported(cfg)
+    ring of its window's size under ``cfg.windowed_cache``. A
+    cross-attention layer's entry adds the encoder side's (k, v) of
+    shape (reps, batch, enc_len, K, hd)."""
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
 
@@ -188,8 +217,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> list
                 s_buf = max_len
                 if cfg.windowed_cache and spec.window:
                     s_buf = min(spec.window, max_len)
-                seg.append((zeros(reps, batch, s_buf, cfg.num_kv_heads, cfg.hd()),
-                            zeros(reps, batch, s_buf, cfg.num_kv_heads, cfg.hd())))
+                entry = (zeros(reps, batch, s_buf, cfg.num_kv_heads, cfg.hd()),
+                         zeros(reps, batch, s_buf, cfg.num_kv_heads, cfg.hd()))
+                if spec.cross_attention:
+                    entry += (zeros(reps, batch, enc_len, cfg.num_kv_heads, cfg.hd()),
+                              zeros(reps, batch, enc_len, cfg.num_kv_heads, cfg.hd()))
+                seg.append(entry)
         caches.append(tuple(seg))
     return caches
 
@@ -198,10 +231,11 @@ def prefill(params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, list]:
     """Process the prompt; returns (last-position logits, prefill caches
     sized to the prompt — the serving layer re-buffers into max_len)."""
     tokens = batch["tokens"]
-    check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, batch)
+    enc_out = _encode(params, cfg, batch) if cfg.is_encdec() else None
     x, _, caches = forward_stack(params["decoder"], layer_segments(cfg), cfg, x, _positions(tokens),
-                                 shared_params=params.get("shared_attn"), collect_cache=True)
+                                 shared_params=params.get("shared_attn"), enc_out=enc_out,
+                                 collect_cache=True)
     return _logits(params, cfg, x[:, -1:, :]), caches
 
 

@@ -14,8 +14,9 @@ applies the one un-stacked ``shared_params`` block and still gets a
 cache slot of its own for each application. A unit position of kind
 ``shared_attn`` holds ``None`` in the stacked parameters. Caches are a
 pair per layer: (k, v) for GQA, (c_kv, k_rope) for MLA, (state, conv)
-for SSD. Cross-attention (enc-dec) raises until ROADMAP.md queue 1,
-item 14b.
+for SSD; a decoder layer with cross-attention (enc-dec) appends the
+encoder side's (k, v), computed once at prefill and read at every
+decode step, so its entry is a 4-tuple.
 """
 
 from __future__ import annotations
@@ -35,12 +36,6 @@ from repro_torch.models.ssm import init_ssm, ssd_decode, ssd_full
 SHARED_SPEC = LayerSpec(kind="attn")
 
 
-def check_layer(spec: LayerSpec) -> None:
-    """Raise for the layers the port does not carry yet."""
-    if spec.cross_attention:
-        raise NotImplementedError("layer cross_attention is not ported yet (ROADMAP item 14b)")
-
-
 def _is_mla(spec: LayerSpec, cfg: ArchConfig) -> bool:
     return cfg.attention == "mla" and spec.kind in ("attn", "moe")
 
@@ -52,7 +47,6 @@ def _is_mla(spec: LayerSpec, cfg: ArchConfig) -> bool:
 
 def init_layer(generator, spec: LayerSpec, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) -> dict:
     """One layer's params; ``lead`` prepends the segment's repeats axis."""
-    check_layer(spec)
     if spec.kind == "ssm":
         return {"ln1": init_rms_norm(cfg.d_model, dtype, device, lead),
                 "ssm": init_ssm(generator, cfg, dtype, device, lead)}
@@ -60,8 +54,11 @@ def init_layer(generator, spec: LayerSpec, cfg: ArchConfig, dtype, device="cpu",
     p: dict[str, Any] = {
         "ln1": init_rms_norm(cfg.d_model, dtype, device, lead),
         "attn": init_attn(generator, cfg, dtype, device, lead),
-        "ln2": init_rms_norm(cfg.d_model, dtype, device, lead),
     }
+    if spec.cross_attention:
+        p["ln_x"] = init_rms_norm(cfg.d_model, dtype, device, lead)
+        p["cross"] = attn.init_cross(generator, cfg, dtype, device, lead)
+    p["ln2"] = init_rms_norm(cfg.d_model, dtype, device, lead)
     if spec.kind == "moe":
         p["moe"] = init_moe(generator, cfg, dtype, device, lead)
     else:
@@ -84,10 +81,11 @@ def _ffn(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor):
     return x + apply_mlp(p["mlp"], h_in), None
 
 
-def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                     enc_out: torch.Tensor | None = None):
     """Returns (x', cache entry, aux); aux is None for a layer without a
-    router."""
-    check_layer(spec)
+    router. A cross-attention layer attends to ``enc_out`` (the
+    encoder's output) and appends its (k, v) to the entry."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "ssm":
         h, cache = ssd_full(p["ssm"], h_in, cfg)
@@ -96,7 +94,14 @@ def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor,
         h, cache = attn.mla_full(p["attn"], h_in, positions, cfg)
     else:
         h, cache = attn.gqa_full(p["attn"], h_in, positions, cfg, window=spec.window)
-    x, aux = _ffn(p, spec, cfg, x + h)
+    x = x + h
+    if spec.cross_attention:
+        if enc_out is None:
+            raise ValueError("a cross-attention layer needs the encoder's output")
+        ck, cv = attn.cross_kv(p["cross"], enc_out, cfg)
+        x = x + attn.cross_attend(p["cross"], rms_norm(x, p["ln_x"], cfg.norm_eps), ck, cv, cfg)
+        cache = cache + (ck, cv)
+    x, aux = _ffn(p, spec, cfg, x)
     return x, cache, aux
 
 
@@ -104,9 +109,10 @@ def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tenso
                        in_place: bool = False):
     """Returns (x', cache entry'). With ``in_place`` the entry's tensors
     are written (K/V and latents at their positions, SSD state and conv
-    tail whole) and come back; by default new tensors (the same bits)."""
-    check_layer(spec)
-    c0, c1 = cache
+    tail whole) and come back; by default new tensors (the same bits).
+    A cross-attention layer's encoder K/V (``cache[2:]``) are read, never
+    written, and come back as they are."""
+    c0, c1 = cache[:2]
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "ssm":
         h, state, conv = ssd_decode(p["ssm"], h_in, c0, c1, cfg)
@@ -119,8 +125,12 @@ def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tenso
         h, c0, c1 = attn.mla_decode(p["attn"], h_in, c0, c1, pos, cfg, in_place=in_place)
     else:
         h, c0, c1 = attn.gqa_decode(p["attn"], h_in, c0, c1, pos, cfg, window=spec.window, in_place=in_place)
-    x, _ = _ffn(p, spec, cfg, x + h)
-    return x, (c0, c1)
+    x = x + h
+    if spec.cross_attention:
+        enc_k, enc_v = cache[2], cache[3]
+        x = x + attn.cross_attend(p["cross"], rms_norm(x, p["ln_x"], cfg.norm_eps), enc_k, enc_v, cfg)
+    x, _ = _ffn(p, spec, cfg, x)
+    return x, (c0, c1) + tuple(cache[2:])
 
 
 # ----------------------------------------------------------------------------
@@ -154,23 +164,24 @@ def _position(spec: LayerSpec, p: Any, shared_params: Any) -> tuple[LayerSpec, A
     return (SHARED_SPEC, shared_params) if spec.kind == "shared_attn" else (spec, p)
 
 
-def _unit_full(unit, cfg, layer_params, shared_params, x, positions):
+def _unit_full(unit, cfg, layer_params, shared_params, x, positions, enc_out):
     """One repeat of a unit: (x', caches, aux summed over its routers in
     layer order, or None without a router)."""
     caches, aux = [], None
     for spec, p in zip(unit, layer_params):
         spec, p = _position(spec, p, shared_params)
-        x, cache, a = apply_layer_full(p, spec, cfg, x, positions)
+        x, cache, a = apply_layer_full(p, spec, cfg, x, positions, enc_out)
         if a is not None:
             aux = a if aux is None else aux + a
         caches.append(cache)
     return x, tuple(caches), aux
 
 
-def _stack_caches(per_rep: list, n_pos: int) -> tuple:
-    """Per repeat a tuple over unit positions of cache pairs -> per unit
-    position the pair stacked over repeats."""
-    return tuple(tuple(torch.stack([c[li][j] for c in per_rep]) for j in range(2)) for li in range(n_pos))
+def _stack_caches(per_rep: list) -> tuple:
+    """Per repeat a tuple over unit positions of cache entries -> per unit
+    position the entry (a pair, or a 4-tuple with cross K/V) stacked over
+    repeats."""
+    return tuple(tuple(torch.stack(parts) for parts in zip(*entries)) for entries in zip(*per_rep))
 
 
 def forward_stack(
@@ -180,13 +191,15 @@ def forward_stack(
     x: torch.Tensor,
     positions: torch.Tensor,
     shared_params: dict | None = None,
+    enc_out: torch.Tensor | None = None,
     collect_cache: bool = False,
 ):
     """Full-sequence pass over all segments. Returns (x, aux_total,
     caches): ``aux_total`` is the routers' auxiliary loss summed over the
     layers in order (a float32 zero without a router); ``caches`` per
-    segment a tuple over unit positions of cache pairs stacked over
-    repeats, or None entries when ``collect_cache`` is False."""
+    segment a tuple over unit positions of cache entries stacked over
+    repeats, or None entries when ``collect_cache`` is False.
+    Cross-attention layers attend to ``enc_out``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for (unit, reps), seg_params in zip(segments, params_segments):
@@ -196,13 +209,13 @@ def forward_stack(
             layer_params = [pp[r] for pp in per_pos]
             if cfg.remat and torch.is_grad_enabled():
                 x, cache, aux = checkpoint(_unit_full, unit, cfg, layer_params, shared_params, x, positions,
-                                           use_reentrant=False)
+                                           enc_out, use_reentrant=False)
             else:
-                x, cache, aux = _unit_full(unit, cfg, layer_params, shared_params, x, positions)
+                x, cache, aux = _unit_full(unit, cfg, layer_params, shared_params, x, positions, enc_out)
             if aux is not None:
                 aux_total = aux_total + aux
             seg_caches.append(cache)
-        caches.append(_stack_caches(seg_caches, len(unit)) if collect_cache else tuple(None for _ in unit))
+        caches.append(_stack_caches(seg_caches) if collect_cache else tuple(None for _ in unit))
     return x, aux_total, caches
 
 
@@ -227,11 +240,11 @@ def decode_stack(
         for r in range(reps):
             for li, unit_spec in enumerate(unit):
                 spec, p = _position(unit_spec, per_pos[li][r], shared_params)
-                c0, c1 = seg_cache[li]
-                x, outs[li][r] = apply_layer_decode(p, spec, cfg, x, (c0[r], c1[r]), pos, in_place=in_place)
+                entry = tuple(c[r] for c in seg_cache[li])
+                x, outs[li][r] = apply_layer_decode(p, spec, cfg, x, entry, pos, in_place=in_place)
         if in_place:
             new_caches.append(seg_cache)
             continue
-        new_caches.append(tuple(tuple(torch.stack([c[j] for c in outs[li]]) for j in range(2))
+        new_caches.append(tuple(tuple(torch.stack(parts) for parts in zip(*outs[li]))
                                 for li in range(len(unit))))
     return x, new_caches

@@ -182,14 +182,6 @@ class TestRebufferCaches:
         assert [a.data_ptr() for a in tree_leaves(got)] == ptrs  # written in place
         assert_bits_equal(got, convert.lm_params_from_numpy(np_tree(want), CPU))
 
-    @pytest.mark.parametrize("arch_id", ["whisper_large_v3", "phi3_vision_4p2b"])
-    def test_other_families_raise_naming_item_14(self, arch_id):
-        cfg = port_cfg(jconfigs.reduced(jconfigs.get_config(arch_id)))
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            rebuffer_caches(cfg, [((torch.zeros(1, 1, 2, 1, 1),),)], 1, 4, 2, 0)
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            ContinuousServer(cfg, ServingConfig(slots=1, prompt_len=2, max_new=2), {}, device=CPU)
-
 
 # ---------------------------------------------------------------------------
 # the step factories and the input specs (src/repro/launch/steps.py)
