@@ -209,7 +209,30 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              positions a prompt, each request its own 576 x 1024 patch
              embeddings; serve_whisper's checks, with max_new 16 + 16 (i % 8).
              The enc-dec phases launch none of K1-K4 (launches_encdec in the
-             kernels line).
+             kernels line);
+  train      launch/train.py on Yi-9B at full width, float32 params and
+             bf16 compute (its get_config): train_sync with depth cut to
+             TRAIN_LAYERS = 4 (1 216 385 024 parameters), batch 8 x 128,
+             10 steps, losses finite and falling, ms a step, tokens/s,
+             peak memory; then train_tmsn, W = 4, K = 4 at 1 layer, 3
+             rounds: certificates finite and monotone, ms a round;
+  ckpt       the train phase's params (4.87 GB) through save_checkpoint to
+             an npz under build/ckpt_smoke (free disk checked first) and
+             load_checkpoint into a fresh tree on the card, bit for bit;
+             seconds and GB/s each way, the process's peak host RSS; the
+             file deleted;
+  sharded_sgd  TMSN-SGD at lm_sgd's shape on ShardedTMSNEngine, 2 gloo
+             ranks sharing the card (one worker each, their collectives
+             staged through host memory), 3 rounds, against TMSNEngine on
+             one device: certificates, history and every final model's
+             per-leaf checksums bit for bit; wall and collective host ms
+             per rank, ms per gather of the 2 x 2.79 GB of models;
+  dryrun     launch/dryrun.py's run_one for every arch and shape on both
+             production meshes and the TMSN round of the train shapes
+             (meta device): counts by status, 0 errors, and the records
+             whose arguments do not fit one card's 80 GB. The launch
+             phases launch none of K1-K4 (launches_train, launches_ckpt,
+             launches_sharded_sgd, launches_dryrun in the kernels line).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -1866,6 +1889,296 @@ def serve_phi3v_phase() -> None:
                           [16 + 16 * (i % 8) for i in range(ENCDEC_REQUESTS)], 3_824_225_280)
 
 
+# ---------------------------------------------------------------------------
+# the launch tooling (phases train, ckpt, sharded_sgd and dryrun)
+# ---------------------------------------------------------------------------
+
+#: train: Yi-9B at full width in float32 params (the training launch's
+#: get_config), depth cut to TRAIN_LAYERS; the CLI's batch and seq
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 10, 8, 128
+#: train_tmsn: the CLI's W and K at lm_sgd's depth, TMSN_ROUNDS rounds
+TMSN_W, TMSN_K, TMSN_ROUNDS = 4, 4, 3
+#: sharded_sgd: lm_sgd's shape on SHARDED_SGD_RANKS gloo ranks sharing the card
+SHARDED_SGD_RANKS, SHARDED_SGD_ROUNDS = 2, 3
+
+
+def _train_args(**kw):
+    import argparse
+
+    base = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4, seed=SEED, ckpt=None,
+                workers=TMSN_W, local_steps=TMSN_K, eps=0.0, device="cuda")
+    return argparse.Namespace(**{**base, **kw})
+
+
+def _matmul_params(shapes) -> int:
+    """Every parameter but the embedding table (a gather) and the norm scales."""
+    from repro_torch.models import param_count
+
+    norms = shapes["final_norm"].numel() + sum(lay["ln1"].numel() + lay["ln2"].numel()
+                                               for seg in shapes["decoder"] for lay in seg)
+    return param_count(shapes) - shapes["embed"].numel() - norms
+
+
+def train_phase():
+    """train_sync on Yi-9B (TRAIN_LAYERS layers, float32 params) for
+    TRAIN_STEPS steps: losses finite and falling, ms a step, tokens/s;
+    then train_tmsn (W = TMSN_W, K = TMSN_K) at 1 layer for TMSN_ROUNDS
+    rounds: certificates finite and monotone, ms a round. Returns the
+    synchronous run's params (the ckpt phase saves them)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_sync, train_tmsn
+    from repro_torch.models import init_params, param_count
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+    shapes = init_params(cfg, SEED, device="meta")
+    n_params, n_matmul = param_count(shapes), _matmul_params(shapes)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_sync(cfg, _train_args())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses, step_s = res["losses"], res["step_seconds"]
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    flop = 6 * n_matmul * tokens
+    log(f"phase train sync arch={cfg.name} layers={cfg.num_layers} params={n_params} matmul_params={n_matmul} "
+        f"param_dtype={cfg.param_dtype} compute_dtype={cfg.compute_dtype} batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
+        f"steps={TRAIN_STEPS} wall_s={wall:.3f} first_step_ms={step_s[0] * 1e3:.3f} ms_per_step={step_ms:.3f} "
+        f"step_ms={[round(s * 1e3, 3) for s in step_s]} tokens_per_s={tokens / (step_ms / 1e3):.1f} "
+        f"achieved_tflops={flop / (step_ms / 1e3) / 1e12:.2f} "
+        f"bf16_peak_share={flop / (step_ms / 1e3) / BF16_OPS_PER_S:.4f} losses={[round(x, 4) for x in losses]} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses not finite and falling: {losses}")
+    params = res["params"]
+    del res
+    gc.collect()
+
+    tcfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tres = train_tmsn(tcfg, _train_args(steps=TMSN_ROUNDS * TMSN_K))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist, round_s = tres["history"], tres["round_seconds"]
+    round_ms = statistics.median(round_s[1:]) * 1e3
+    n1 = param_count(init_params(tcfg, SEED, device="meta"))
+    log(f"phase train tmsn arch={tcfg.name} layers={tcfg.num_layers} params_per_worker={n1} W={TMSN_W} "
+        f"K={TMSN_K} batch={TRAIN_BATCH} seq={TRAIN_SEQ} rounds={len(round_s)} wall_s={wall:.3f} "
+        f"first_round_ms={round_s[0] * 1e3:.3f} ms_per_round={round_ms:.3f} "
+        f"round_ms={[round(s * 1e3, 3) for s in round_s]} "
+        f"tokens_per_s={TMSN_W * TMSN_K * tokens / (round_ms / 1e3):.1f} mean_losses={tres['losses']} "
+        f"certificates={hist.tolist()} max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    # tests/test_launch.py::test_round_improves_and_certs_monotone's bound
+    if not (np.all(np.isfinite(hist)) and np.all(hist[1:] <= hist[:-1] + 1e-2)):
+        raise AssertionError(f"train: TMSN certificates not finite and monotone: {hist.tolist()}")
+    del tres
+    gc.collect()
+    log(f"phase train ok seconds={time.perf_counter() - t_phase:.3f}")
+    return params
+
+
+def ckpt_phase(params) -> None:
+    """The train phase's params to an npz and back into a fresh tree on
+    the card, bit for bit; seconds and GB/s each way; the file deleted."""
+    import resource
+
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    nbytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    folder = ROOT / "build" / "ckpt_smoke"
+    folder.mkdir(parents=True, exist_ok=True)
+    path = folder / "train.npz"
+    free = shutil.disk_usage(folder).free
+    log(f"phase ckpt disk free_bytes={free} need_bytes={nbytes} folder={folder.relative_to(ROOT)}")
+    if free < 1.2 * nbytes:
+        raise AssertionError(f"ckpt: {free} bytes free under {folder}, the checkpoint needs {nbytes}")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(path), params)
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        like = tree_map(torch.empty_like, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(str(path), like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    leaves = tree_leaves(loaded)
+    same = len(leaves) == len(tree_leaves(params)) and all(
+        b.device == a.device and b.dtype == a.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(tree_leaves(params), leaves))
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"phase ckpt leaves={len(leaves)} tensor_bytes={nbytes} file_bytes={size} save_s={save_s:.3f} "
+        f"save_gb_per_s={nbytes / save_s / 1e9:.3f} load_s={load_s:.3f} load_gb_per_s={nbytes / load_s / 1e9:.3f} "
+        f"bitwise={same} process_peak_rss_bytes={rss} file_deleted={not path.exists()}")
+    if not same:
+        raise AssertionError("ckpt: the loaded params differ from the saved ones")
+    log(f"phase ckpt ok seconds={time.perf_counter() - t_phase:.3f}")
+
+
+def _sgd_worker(device):
+    """lm_sgd's worker: Yi-9B at full width, LM_LAYERS layers, K = LM_K,
+    batch LM_BATCH x LM_SEQ."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import TMSNSGDConfig, lm_sgd_worker
+    from repro_torch.optim import AdamWConfig
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    return lm_sgd_worker(cfg, AdamWConfig(lr=3e-4), TMSNSGDConfig(local_steps=LM_K), batch_size=LM_BATCH,
+                         seq=LM_SEQ, device=device)
+
+
+def _sgd_result(res, wall: float) -> dict:
+    import numpy as np
+
+    from repro_torch.tree import tree_map
+
+    return dict(certs=np.asarray(res.final_certificates, np.float32), history=res.history, rounds=res.rounds,
+                sums=[checksum(tree_map(lambda a: a.unsqueeze(0), m)).cpu().numpy() for m in res.final_models],
+                wall_s=wall,
+                sent=res.messages_sent, accepted=res.messages_accepted)
+
+
+def sharded_sgd_rank(mesh) -> dict:
+    """One rank of ``sharded_sgd``: ShardedTMSNEngine over the SGD worker,
+    W = SHARDED_SGD_RANKS (one worker a rank), dense gossip, delay 1."""
+    import torch
+
+    from repro_torch.core.engine_sharded import ShardedTMSNEngine
+    from repro_torch.kernels import ops
+
+    ecfg = dataclasses.replace(engine_config(SHARDED_SGD_RANKS, SHARDED_SGD_ROUNDS, False), mesh=mesh)
+    eng = ShardedTMSNEngine(_sgd_worker(mesh.device), ecfg)
+    torch.cuda.synchronize(mesh.device)
+    ops.reset_launches()
+    mesh.collective_seconds, mesh.collectives = 0.0, 0
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize(mesh.device)
+    out = _sgd_result(res, time.perf_counter() - t0)
+    out.update(rank=mesh.rank, backend=mesh.backend, host_staged=mesh.host_staged, payload_bytes=eng._payload_bytes,
+               collective_s=mesh.collective_seconds, collectives=mesh.collectives, launches=dict(ops.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated(mesh.device))
+    return out
+
+
+def sharded_sgd_phase() -> dict:
+    """TMSN-SGD at lm_sgd's shape on SHARDED_SGD_RANKS gloo ranks sharing
+    the card (their collectives staged through host memory) against the
+    single-device engine: certificates, history and every final model's
+    per-leaf checksums bit for bit. Returns the ranks' K1-K4 launches."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import TMSNEngine
+    from repro_torch.launch.mesh import spawn_world
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    single = TMSNEngine(_sgd_worker("cuda"), engine_config(SHARDED_SGD_RANKS, SHARDED_SGD_ROUNDS, False),
+                        device="cuda").run()
+    torch.cuda.synchronize()
+    one = _sgd_result(single, time.perf_counter() - t0)
+    one_peak = torch.cuda.max_memory_allocated()
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    # two ranks of ~34 GB each share the card: their allocators map
+    # segments that grow in place rather than leave reserved gaps
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            t0 = time.perf_counter()
+            ranks = spawn_world(sharded_sgd_rank, ["cuda:0"] * SHARDED_SGD_RANKS, Path(work) / "world")
+            spawn_s = time.perf_counter() - t0
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    n = SHARDED_SGD_ROUNDS
+    for r in ranks:
+        same = (np.array_equal(bits(r["certs"]), bits(one["certs"])) and r["history"] == one["history"]
+                and all(np.array_equal(a, b) for a, b in zip(r["sums"], one["sums"]))
+                and len(r["sums"]) == len(one["sums"]))
+        # the collectives: one gather of every worker's model a round and one
+        # at the end (each SHARDED_SGD_RANKS x the payload), and the
+        # history's object gather (a few kB)
+        log(f"phase sharded_sgd rank={r['rank']} backend={r['backend']} host_staged={r['host_staged']} "
+            f"rounds={r['rounds']} wall_ms_per_round={r['wall_s'] / n * 1e3:.3f} (the engine's init included) "
+            f"collective_ms={r['collective_s'] * 1e3:.3f} collectives={r['collectives']} "
+            f"ms_per_model_gather={r['collective_s'] / (n + 1) * 1e3:.3f} "
+            f"payload_bytes={r['payload_bytes']} gathered_bytes_per_round={SHARDED_SGD_RANKS * r['payload_bytes']} "
+            f"sent={r['sent']} accepted={r['accepted']} max_memory_allocated={r['peak']} "
+            f"launches={json.dumps(r['launches'])} equal_single_device={same}")
+        if not same:
+            raise AssertionError(f"sharded_sgd: rank {r['rank']} differs from one device: certificates "
+                                 f"{r['certs'].tolist()} vs {one['certs'].tolist()}")
+    log(f"phase sharded_sgd single_device wall_ms_per_round={one['wall_s'] / n * 1e3:.3f} "
+        f"max_memory_allocated={one_peak} certificates={one['certs'].tolist()} accepted={one['accepted']} "
+        f"world_seconds={spawn_s:.3f}")
+    if not (np.all(np.isfinite(one["certs"])) and one["sent"] > 0):
+        raise AssertionError(f"sharded_sgd: certificates {one['certs'].tolist()}, {one['sent']} broadcasts")
+    log(f"phase sharded_sgd ok ranks={SHARDED_SGD_RANKS} bitwise==single device (certificates, history, "
+        f"per-leaf model checksums) seconds={time.perf_counter() - t_phase:.3f}")
+    launches: dict = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def dryrun_phase() -> None:
+    """launch/dryrun.py's run_one for every arch and shape on both
+    production meshes, and the TMSN round for the train shapes: counts by
+    status (no error allowed) and the records whose arguments do not fit
+    one card's 80 GB."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.steps import INPUT_SHAPES
+
+    t0 = time.perf_counter()
+    counts, no_fit, errors = {"ok": 0, "skip": 0, "error": 0}, [], []
+    for multi in (False, True):
+        for arch in ARCH_IDS:
+            for shape, (_, _, kind) in INPUT_SHAPES.items():
+                for tmsn in ((False, True) if kind == "train" else (False,)):
+                    rec = run_one(arch, shape, multi, tmsn=tmsn)
+                    counts[rec["status"]] += 1
+                    if rec["status"] == "error":
+                        errors.append(f"{arch} {shape} {rec['mesh']} tmsn={tmsn}: {rec['error']}")
+                    elif rec["status"] == "ok" and not rec["fits_hbm"]:
+                        no_fit.append(f"{arch}/{shape}/{rec['mesh']}{'/tmsn' if tmsn else ''}="
+                                      f"{rec['memory']['argument_size_in_bytes']}")
+    log(f"phase dryrun records={sum(counts.values())} ok={counts['ok']} skip={counts['skip']} "
+        f"error={counts['error']} seconds={time.perf_counter() - t0:.3f}")
+    log(f"phase dryrun does_not_fit_80GB argument_bytes={json.dumps(no_fit)}")
+    if errors:
+        raise AssertionError("dryrun: " + "; ".join(errors))
+
+
 def main() -> int:
     import torch
 
@@ -2973,6 +3286,26 @@ def main() -> int:
     log(f"phase encdec launches={json.dumps(encdec_launches)}")
     for k, rec in records.items():
         rec["launches_encdec"] = encdec_launches[k]
+
+    # ------------------------------------------------------- the launch tooling
+    def note_launches(name: str, ranks: dict) -> None:
+        """K1-K4 launches of the phase just run, in this process and its ranks."""
+        for k, rec in records.items():
+            rec[f"launches_{name}"] = ops.LAUNCHES[k] + ranks.get(k, 0)
+        log(f"phase {name} launches={json.dumps({k: rec[f'launches_{name}'] for k, rec in records.items()})}")
+
+    ops.reset_launches()
+    trained = train_phase()
+    note_launches("train", {})
+    ops.reset_launches()
+    ckpt_phase(trained)
+    del trained
+    note_launches("ckpt", {})
+    ops.reset_launches()
+    note_launches("sharded_sgd", sharded_sgd_phase())
+    ops.reset_launches()
+    dryrun_phase()
+    note_launches("dryrun", {})
 
     log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,15 @@
-"""Worker mesh for the sharded TMSN engine, on ``torch.distributed``;
-counterpart of ``make_worker_mesh``, ``ici_round_seconds`` and
-``dcn_round_seconds`` in ``src/repro/launch/mesh.py``.
+"""Meshes, on ``torch.distributed``; counterpart of
+``src/repro/launch/mesh.py``.
+
+The production meshes (:func:`make_production_mesh`, :func:`make_host_mesh`)
+are descriptions, :class:`ProductionMesh`: axis names and sizes, which the
+sharding rules and the dry-run read without touching a device or needing
+a world (the reference builds its meshes in functions for the same
+reason). :meth:`ProductionMesh.device_mesh` builds the
+``torch.distributed.device_mesh.DeviceMesh`` of that shape once a world
+of that many ranks runs.
+
+The rest is the worker mesh of the sharded TMSN engine.
 
 One process (rank) per shard. A :class:`WorkerMesh` names the rank, the
 world, the rank's device and the process group: a 1-D ``("workers",)``
@@ -33,6 +42,7 @@ it starts them, and returns what each rank's function returned.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import pickle
 import time
@@ -54,6 +64,68 @@ NVLINK_BYTES_PER_S = 450e9
 #: 400 Gb/s (the InfiniBand NDR adapter of a DGX H100 node, one per GPU),
 #: NVIDIA's published figure, not measured here
 DCN_BYTES_PER_S = 50e9
+
+#: one H100 SXM's dense bf16 tensor-core peak, its HBM3 bandwidth and its
+#: memory: NVIDIA's published figures, not measured here (the roofline
+#: terms of the dry-run)
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+HBM_BYTES = 80e9
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A device mesh as a description: ``axis_names`` and their sizes
+    ``shape``, major axis first."""
+
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def device_mesh(self, device_type: str = "cuda"):
+        """The ``DeviceMesh`` of this shape over the running world, which
+        must have exactly :attr:`size` ranks."""
+        from torch.distributed.device_mesh import init_device_mesh
+
+        if not dist.is_initialized() or dist.get_world_size() != self.size:
+            raise RuntimeError(f"a {self.shape} mesh needs an initialized world of {self.size} ranks")
+        return init_device_mesh(device_type, self.shape, mesh_dim_names=self.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """``(data=16, model=16)``, or ``(pod=2, data=16, model=16)``."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh() -> ProductionMesh:
+    """The one-device ``(data=1, model=1)`` mesh of smoke runs."""
+    return ProductionMesh(("data", "model"), (1, 1))
+
+
+def axis_names(mesh) -> tuple:
+    """A :class:`ProductionMesh`'s or a ``DeviceMesh``'s axis names."""
+    return tuple(mesh.axis_names if isinstance(mesh, ProductionMesh) else mesh.mesh_dim_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """Axis name -> size, of a :class:`ProductionMesh` or a ``DeviceMesh``."""
+    if isinstance(mesh, ProductionMesh):
+        return mesh.axis_sizes
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """Axes the global batch is sharded over."""
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
 
 
 @dataclasses.dataclass(eq=False)
@@ -199,18 +271,23 @@ def make_worker_mesh(
 # ---------------------------------------------------------------------------
 
 
-def _pack(tree: Any) -> tuple[torch.Tensor, list]:
-    """Every leaf's bytes, in leaf order, as one uint8 buffer; and each
-    leaf's (dtype, shape, byte count)."""
+def _pack(tree: Any, device: torch.device | None = None) -> tuple[torch.Tensor, list]:
+    """Every leaf's bytes, in leaf order, as one uint8 buffer on ``device``
+    (the leaves' own by default; each leaf is copied straight into its
+    place); and each leaf's (dtype, shape, byte count)."""
     leaves = tree_leaves(tree)
-    meta, parts = [], []
+    meta = []
     for a in leaves:
         if a.dim() == 0:
             raise ValueError("collective leaves need a leading axis")
-        b = a.contiguous().reshape(-1).view(torch.uint8)
-        meta.append((a.dtype, tuple(a.shape), b.numel()))
-        parts.append(b)
-    return torch.cat(parts), meta
+        meta.append((a.dtype, tuple(a.shape), a.numel() * a.element_size()))
+    buf = torch.empty((sum(m[2] for m in meta),), dtype=torch.uint8,
+                      device=leaves[0].device if device is None else device)
+    off = 0
+    for a, (_, _, nb) in zip(leaves, meta):
+        buf[off : off + nb].copy_(a.contiguous().reshape(-1).view(torch.uint8))
+        off += nb
+    return buf, meta
 
 
 def _unpack(rows: torch.Tensor, meta: list, tree: Any) -> Any:
@@ -233,37 +310,33 @@ def _all_gather_bytes(mesh: WorkerMesh, buf: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-def _all_gather_bytes_via_host(mesh: WorkerMesh, buf: torch.Tensor) -> torch.Tensor:
-    """:func:`_all_gather_bytes` of a CUDA buffer under gloo: one copy to
-    host memory, the gather there, one copy back to the rank's card."""
-    return _all_gather_bytes(mesh, buf.cpu()).to(mesh.device)
-
-
 def all_gather_tree(mesh: WorkerMesh, tree: Any) -> Any:
     """Gather a pytree over the mesh in one collective: a leaf of shape
     ``(n, ...)`` on each rank comes back ``(size * n, ...)``, rank 0's
     rows first. Every rank must pass leaves of the same shapes and
-    dtypes. Bits are copied, never summed."""
+    dtypes. Bits are copied, never summed. Staged through host memory
+    (``mesh.host_staged``), the leaves are packed, gathered and unpacked
+    on the host and each gathered leaf is copied to the card once, so
+    the card holds no packed buffer."""
     t0 = time.perf_counter()
-    buf, meta = _pack(tree)
-    gather = _all_gather_bytes_via_host if mesh.host_staged else _all_gather_bytes
-    out = _unpack(gather(mesh, buf), meta, tree)
+    buf, meta = _pack(tree, torch.device("cpu") if mesh.host_staged else None)
+    out = _unpack(_all_gather_bytes(mesh, buf), meta, tree)
+    if mesh.host_staged:
+        out = tree_map(lambda a: a.to(mesh.device), out)
     mesh._tick(t0)
     return out
 
 
 def broadcast_tree(mesh: WorkerMesh, tree: Any, src: int) -> Any:
     """Rank ``src``'s pytree on every rank (leaves of the same shapes and
-    dtypes everywhere); bits are copied."""
+    dtypes everywhere); bits are copied, through host memory when
+    ``mesh.host_staged``."""
     t0 = time.perf_counter()
-    buf, meta = _pack(tree)
-    if mesh.host_staged:
-        host = buf.cpu()
-        dist.broadcast(host, src=src, group=mesh.group)
-        buf = host.to(mesh.device)
-    else:
-        dist.broadcast(buf, src=src, group=mesh.group)
+    buf, meta = _pack(tree, torch.device("cpu") if mesh.host_staged else None)
+    dist.broadcast(buf, src=src, group=mesh.group)
     out = _unpack(buf.reshape(1, -1), meta, tree)
+    if mesh.host_staged:
+        out = tree_map(lambda a: a.to(mesh.device), out)
     mesh._tick(t0)
     return out
 
@@ -386,15 +459,24 @@ def spawn_world(
 
 __all__ = [
     "DCN_BYTES_PER_S",
+    "HBM_BW",
+    "HBM_BYTES",
     "NVLINK_BYTES_PER_S",
+    "PEAK_FLOPS_BF16",
+    "ProductionMesh",
     "WorkerMesh",
     "all_gather_object",
     "all_gather_tree",
     "all_reduce",
     "backend_for",
+    "axis_names",
+    "axis_sizes",
     "broadcast_tree",
+    "data_axes",
     "dcn_round_seconds",
     "ici_round_seconds",
+    "make_host_mesh",
+    "make_production_mesh",
     "make_worker_mesh",
     "spawn_world",
 ]
