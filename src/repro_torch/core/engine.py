@@ -52,6 +52,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.protocol import accepts, improves
 from repro_torch.core.result import SimResult, TrafficCounters
 from repro_torch.core.worker import (
@@ -63,6 +64,7 @@ from repro_torch.core.worker import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.tree import tree_leaves
 
 #: multiplier on the warm-up probe's ``inflight_occupancy_peak`` when
 #: ``inflight_capacity="auto"`` sizes the pending queues
@@ -416,10 +418,13 @@ def _empty_queue(w: int, capacity: int, device) -> PendingQueue:
 
 
 def _inf(like: torch.Tensor) -> torch.Tensor:
+    # a host-to-device copy from pageable memory: it waits for the card
+    trace.count("host_syncs", 1, "engine.constant")
     return torch.tensor(float("inf"), dtype=torch.float32, device=like.device)
 
 
 def _i32(x: int, like: torch.Tensor) -> torch.Tensor:
+    trace.count("host_syncs", 1, "engine.constant")
     return torch.tensor(x, dtype=torch.int32, device=like.device)
 
 
@@ -693,6 +698,10 @@ def _snap_ring(ring, models, slot: int, bcast: torch.Tensor, lo: int = 0):
         out = buf.clone()
         hi = lo + m.shape[0]
         out[slot, lo:hi] = torch.where(bcast.reshape((-1,) + (1,) * (m.dim() - 1)), m, buf[slot, lo:hi])
+        # the clone reads and writes the ring; the where reads the models
+        # and the slot's rows and writes a temporary, which the assignment
+        # reads and writes into the slot
+        trace.count("engine.copy_bytes", (2 * buf.numel() + 5 * m.numel()) * buf.element_size(), "ring")
         return out
 
     return tree_map(snap, ring, models)
@@ -889,6 +898,7 @@ class TMSNEngine:
         while self._next_publish_round <= rounds:
             self._next_publish_round += k
         certs, alive = self._global_certs_alive(state)
+        trace.count("host_syncs", 2, "engine.publish")
         live = np.where(alive, certs, np.inf)
         best = int(np.argmin(live))
         best_cert = float(live[best])
@@ -898,6 +908,7 @@ class TMSNEngine:
             return
         # a host copy as CPU tensors: every dtype (bfloat16 included) and every bit
         params = tree_map(lambda a: a.detach().to("cpu", copy=True), self._export_row(state, best))
+        trace.count("host_syncs", len(tree_leaves(params)), "engine.publish")
         self._publisher.publish(params, cert=best_cert, round=rounds)
         self._published_cert = best_cert
 
@@ -1059,48 +1070,58 @@ class TMSNEngine:
         cfg, rows = self.config, self._rows
         w, depth, dev = cfg.n_workers, self._depth, self.device
         r = state.round
-        if self._has_joins:
-            # joins are sticky and compose with fail-stop; a joiner's
-            # credit restarts at 0 on its join round (it accrued while
-            # masked); its worker rows were never touched while masked
-            alive = (state.alive | (r >= rows.join_round)) & (r < rows.fail_round)
-            credit_in = torch.where(r == rows.join_round, 0.0, state.credit)
-        else:
-            alive = state.alive & (r < rows.fail_round)
-            credit_in = state.credit
-        certs0 = state.certs
+        with trace.span("engine.deliver"):
+            if self._has_joins:
+                # joins are sticky and compose with fail-stop; a joiner's
+                # credit restarts at 0 on its join round (it accrued while
+                # masked); its worker rows were never touched while masked
+                alive = (state.alive | (r >= rows.join_round)) & (r < rows.fail_round)
+                credit_in = torch.where(r == rows.join_round, 0.0, state.credit)
+            else:
+                alive = state.alive & (r < rows.fail_round)
+                credit_in = state.credit
+            certs0 = state.certs
 
-        # --- 1.+2.(+3. credit) deliver arrivals due this round ------------
-        if self._capacity:
-            (inflight, best_cert, best_src, sent_slot, take, n_arrivals, credit,
-             active) = self._deliver_sparse(state.inflight, certs0, alive, credit_in, rows.speed_norm, r)
-        else:
-            nr = rows.ids.shape[0]
-            row_idx = torch.arange(nr, device=dev)
-            arr = state.inflight[:, :, 0]  # (dst, src) certs
-            arr_live = torch.where(alive.unsqueeze(1), arr, _inf(arr))
-            best_src = torch.argmin(arr_live, dim=1)  # first minimum: lowest src on ties
-            best_cert = arr_live[row_idx, best_src]
-            take = accepts(certs0, best_cert, cfg.eps) & torch.isfinite(best_cert)
-            n_arrivals = torch.isfinite(arr).sum(dtype=torch.int32)
-            sent_slot = (r - rows.delay_t[row_idx, best_src]) % depth
-            inflight = torch.cat(
-                [state.inflight[:, :, 1:], torch.full((nr, w, 1), float("inf"), device=dev)], dim=2
-            )
-            credit = credit_in + rows.speed_norm
-            active = alive & (credit >= 1.0 - 1e-6)
-            credit = torch.where(active, credit - 1.0, credit)
-        n_taken = take.sum(dtype=torch.int32)
+            # --- 1.+2.(+3. credit) deliver arrivals due this round --------
+            if self._capacity:
+                (inflight, best_cert, best_src, sent_slot, take, n_arrivals, credit,
+                 active) = self._deliver_sparse(state.inflight, certs0, alive, credit_in, rows.speed_norm, r)
+            else:
+                nr = rows.ids.shape[0]
+                row_idx = torch.arange(nr, device=dev)
+                arr = state.inflight[:, :, 0]  # (dst, src) certs
+                arr_live = torch.where(alive.unsqueeze(1), arr, _inf(arr))
+                best_src = torch.argmin(arr_live, dim=1)  # first minimum: lowest src on ties
+                best_cert = arr_live[row_idx, best_src]
+                take = accepts(certs0, best_cert, cfg.eps) & torch.isfinite(best_cert)
+                n_arrivals = torch.isfinite(arr).sum(dtype=torch.int32)
+                sent_slot = (r - rows.delay_t[row_idx, best_src]) % depth
+                inflight = torch.cat(
+                    [state.inflight[:, :, 1:], torch.full((nr, w, 1), float("inf"), device=dev)], dim=2
+                )
+                credit = credit_in + rows.speed_norm
+                active = alive & (credit >= 1.0 - 1e-6)
+                credit = torch.where(active, credit - 1.0, credit)
+            n_taken = take.sum(dtype=torch.int32)
 
         wstate = state.worker
         zeros_w = torch.zeros(certs0.shape, dtype=torch.float32, device=dev)
         # rows with no taker skip the payload gather and the adoption
         # math (on a sharded engine this is rank-local and issues no
         # collective); the gathered payloads are dropped once adopted
+        trace.count("host_syncs", 1, "engine.take_any")
         if bool(take.any()):
             slot_l, src_l = sent_slot.long(), best_src.long()
-            in_models = tree_map(lambda a: a[slot_l, src_l], state.ring)
-            wstate, adopt_cost = self.worker.adopt_batch(wstate, in_models, best_cert, take)
+
+            def gather(a: torch.Tensor) -> torch.Tensor:
+                out = a[slot_l, src_l]
+                trace.count("engine.copy_bytes", 2 * out.numel() * out.element_size(), "gather")
+                return out
+
+            with trace.span("engine.gather"):
+                in_models = tree_map(gather, state.ring)
+            with trace.span("engine.adopt"):
+                wstate, adopt_cost = self.worker.adopt_batch(wstate, in_models, best_cert, take)
             del in_models
         else:
             adopt_cost = zeros_w
@@ -1114,7 +1135,8 @@ class TMSNEngine:
                 wstate, resample_cost = self.worker.resample_round(wstate, need)
             scan_mask = active & ~need
         certs_pre = self.worker.certificates(wstate)
-        wstate, scan_cost, fired = self.worker.scan_round(wstate, scan_mask)
+        with trace.span("engine.scan"):
+            wstate, scan_cost, fired = self.worker.scan_round(wstate, scan_mask)
         certs = self.worker.certificates(wstate)
 
         cost = adopt_cost + resample_cost + scan_cost
@@ -1131,17 +1153,20 @@ class TMSNEngine:
         ``(inflight, ring, counters)``, counters as :meth:`_push_broadcast`'s."""
         cfg, w, r = self.config, self.config.n_workers, state.round
         certs = adv.certs
-        if self._control_sparse:
-            # only the top-k improvers are offered; under uniform delay
-            # the runner-ups could never have been accepted
-            kc = min(int(cfg.gossip_top_k), w)
-            rows, validk = self._top_k_candidates(adv.improved, certs, kc)
-            cand_ids = torch.where(validk, rows.to(torch.int32), _i32(w, certs))
-            cand_certs = torch.where(validk, certs[rows], _inf(certs))
-            inflight, *pushed = self._push_candidates(adv.inflight, cand_certs, cand_ids, adv, r)
-        else:
-            inflight, *pushed = self._push_broadcast(adv.inflight, certs, adv.improved, adv, r)
-        ring = _snap_ring(state.ring, self.worker.export_models(adv.wstate), r % self._depth, adv.improved)
+        with trace.span("engine.gossip"):
+            if self._control_sparse:
+                # only the top-k improvers are offered; under uniform delay
+                # the runner-ups could never have been accepted
+                kc = min(int(cfg.gossip_top_k), w)
+                rows, validk = self._top_k_candidates(adv.improved, certs, kc)
+                cand_ids = torch.where(validk, rows.to(torch.int32), _i32(w, certs))
+                cand_certs = torch.where(validk, certs[rows], _inf(certs))
+                inflight, *pushed = self._push_candidates(adv.inflight, cand_certs, cand_ids, adv, r)
+            else:
+                inflight, *pushed = self._push_broadcast(adv.inflight, certs, adv.improved, adv, r)
+        models = self.worker.export_models(adv.wstate)
+        with trace.span("engine.ring"):
+            ring = _snap_ring(state.ring, models, r % self._depth, adv.improved)
         return inflight, ring, pushed
 
     def _push_candidates(self, inflight, cand_certs, cand_ids, adv: _Advanced, r: int):
@@ -1236,7 +1261,8 @@ class TMSNEngine:
         # finite best certificate publishes
         self._published_cert = float("inf")
         self._next_publish_round = max(int(cfg.publish_every_k), 1)
-        state = self._init_state()
+        with trace.span("engine.init"):
+            state = self._init_state()
         gids = self._rows.ids.cpu().numpy()
         # history blocks (round, clock, gid, cert); round 0 is the start
         parts = [(0, np.zeros(len(gids), np.float32), gids, state.certs.cpu().numpy())]
@@ -1245,19 +1271,25 @@ class TMSNEngine:
         rpd, max_rounds = int(cfg.rounds_per_dispatch), int(cfg.max_rounds)
         rounds = 0
         for _ in range(max_rounds):
-            state, info = self._round_step(state)
-            rounds += 1
-            stop = False
-            if cfg.record_history or target is not None:
-                certs_r = info.certs.cpu().numpy()
-                if cfg.record_history:
-                    ww = np.nonzero(info.changed.cpu().numpy())[0]
-                    parts.append((rounds, info.clock.cpu().numpy()[ww], gids[ww], certs_r[ww]))
-                if target is not None:
-                    # f32 target, as in the reference's in-scan freeze comparison
-                    stop = self._any_rank(bool(np.any((certs_r <= target) & info.alive.cpu().numpy())))
-            if stop or rounds % rpd == 0 or rounds == max_rounds:
-                self._maybe_publish(state, rounds)
+            with trace.span("engine.round", round=rounds):
+                state, info = self._round_step(state)
+                rounds += 1
+                stop = False
+                if cfg.record_history or target is not None:
+                    with trace.span("engine.history"):
+                        certs_r = info.certs.cpu().numpy()
+                        trace.count("host_syncs", 1, "engine.history")
+                        if cfg.record_history:
+                            ww = np.nonzero(info.changed.cpu().numpy())[0]
+                            parts.append((rounds, info.clock.cpu().numpy()[ww], gids[ww], certs_r[ww]))
+                            trace.count("host_syncs", 2, "engine.history")
+                        if target is not None:
+                            # f32 target, as in the reference's in-scan freeze comparison
+                            alive_r = info.alive.cpu().numpy()
+                            trace.count("host_syncs", 1, "engine.history")
+                            stop = self._any_rank(bool(np.any((certs_r <= target) & alive_r)))
+                if stop or rounds % rpd == 0 or rounds == max_rounds:
+                    self._maybe_publish(state, rounds)
             if stop:
                 break
         # final flush: an improvement after the last due boundary still

@@ -73,6 +73,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.engine import (
     _COUNTERS,
     EngineConfig,
@@ -268,8 +269,10 @@ class ShardedTMSNEngine(TMSNEngine):
             ok = g["ids"] < w  # padding carries id W
             gids = g["ids"][ok].long()
             # only candidates are ever read back from the ring
-            ring = _scatter_ring(state.ring, g["models"], slot, gids, ok if gated else gids - base)
-            inflight, *pushed = self._push_candidates(adv.inflight, g["certs"], g["ids"], adv, r)
+            with trace.span("engine.ring"):
+                ring = _scatter_ring(state.ring, g["models"], slot, gids, ok if gated else gids - base)
+            with trace.span("engine.gossip"):
+                inflight, *pushed = self._push_candidates(adv.inflight, g["certs"], g["ids"], adv, r)
             return inflight, ring, pushed
         if gated:
             # every pod worker's certificate and flag; the payloads of
@@ -281,12 +284,14 @@ class ShardedTMSNEngine(TMSNEngine):
                 "models": export_payload_rows(self.worker, adv.wstate, rows),
             })
             ok = g["ids"] < w
-            ring = _scatter_ring(state.ring, g["models"], slot, g["ids"][ok].long(), ok)
+            with trace.span("engine.ring"):
+                ring = _scatter_ring(state.ring, g["models"], slot, g["ids"][ok].long(), ok)
         else:
             g = all_gather_tree(tier, {
                 "certs": certs, "bcast": adv.improved, "models": self.worker.export_models(adv.wstate),
             })
-            ring = _snap_ring(state.ring, g["models"], slot, g["bcast"], base)
+            with trace.span("engine.ring"):
+                ring = _snap_ring(state.ring, g["models"], slot, g["bcast"], base)
         certs_all, bcast_all = g["certs"], g["bcast"]
         if self._n_pods > 1:
             # the pod's (W_pod,) control plane at its block of (W,)
@@ -294,7 +299,8 @@ class ShardedTMSNEngine(TMSNEngine):
             certs_all[base : base + self._w_pod] = g["certs"]
             bcast_all = torch.zeros((w,), dtype=torch.bool, device=self.device)
             bcast_all[base : base + self._w_pod] = g["bcast"]
-        inflight, *pushed = self._push_broadcast(adv.inflight, certs_all, bcast_all, adv, r)
+        with trace.span("engine.gossip"):
+            inflight, *pushed = self._push_broadcast(adv.inflight, certs_all, bcast_all, adv, r)
         return inflight, ring, pushed
 
     # ----- tier 2: the cross-pod flush (ref engine_sharded.py:752-927) ----
@@ -339,7 +345,11 @@ def _scatter_ring(ring, models, slot: int, gids: torch.Tensor, src):
 
     def scat(buf: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         out = buf.clone()
-        out[slot, gids] = m[src]
+        rows = m[src]
+        out[slot, gids] = rows
+        # the clone reads and writes the ring; the rows are gathered into a
+        # temporary, which the assignment reads and writes into the slot
+        trace.count("engine.copy_bytes", (2 * buf.numel() + 4 * rows.numel()) * buf.element_size(), "ring")
         return out
 
     return tree_map(scat, ring, models)

@@ -47,6 +47,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.tmsn_sgd import TMSNSGDConfig
 from repro_torch.core.worker import masked_rows, tree_map
 from repro_torch.device import resolve_device
@@ -129,11 +130,14 @@ class BatchedSGDWorker:
             batch = tree_map(lambda a, k=k: a[k], batches)
             leaves = tree_map(lambda a: a.detach().requires_grad_(True), params)
             with torch.enable_grad():
-                loss, _aux = self._loss_fn(leaves, batch)
-                loss.backward()
+                with trace.span("sgd.forward", step=k):
+                    loss, _aux = self._loss_fn(leaves, batch)
+                with trace.span("sgd.backward", step=k):
+                    loss.backward()
             grads = tree_map(lambda a: a.grad, leaves)
             del leaves
-            apply_updates_(params, grads, opt, self._opt_cfg, out=dst)
+            with trace.span("sgd.adamw", step=k):
+                apply_updates_(params, grads, opt, self._opt_cfg, out=dst)
             del grads
             losses.append(loss.detach())
         return torch.stack(losses)
@@ -147,6 +151,8 @@ class BatchedSGDWorker:
         w = state.cert.shape[0]
         active = mask.tolist()
         streams, draws = state.stream.tolist(), state.draws.tolist()
+        for site in ("scan.mask", "scan.streams", "scan.draws"):
+            trace.count("host_syncs", 1, site)
         # the new state's rows: an active worker's segment writes its own
         # (so one worker's AdamW temporaries are the only memory beyond
         # the two states), a masked-out worker's are copied bit for bit
@@ -156,7 +162,8 @@ class BatchedSGDWorker:
         for i in range(w):
             src, dst = (tree_map(lambda a, i=i: a[i], t) for t in (old, new))
             if active[i]:
-                losses[i] = self._segment(src, dst, self._batch_fn(streams[i], draws[i]))
+                with trace.span("sgd.segment", worker=i):
+                    losses[i] = self._segment(src, dst, self._batch_fn(streams[i], draws[i]))
             else:
                 tree_map(lambda d, s: d.copy_(s), dst, src)
         params, opt = new

@@ -6,7 +6,8 @@ bit-exact, floats compared as bit patterns, K4 ``weight_update``
 to rtol 1e-4 / atol 1e-5 (the reference's own tolerance) and bitwise
 equal to itself; the engines, chaos features and sharded ranks through
 them; and the LM stack and TMSN-SGD (a bf16 backward that repeats bit
-for bit, the engine equal to the oracle), and the serving tier (in-place
+for bit, the engine equal to the oracle, the program's tracer adding no
+device interval), and the serving tier (in-place
 decode bit for bit the out-of-place one, a server run with admission
 and adoption equal to the CPU's). Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
@@ -17,6 +18,8 @@ Every test needs a CUDA device (marker ``cuda``) and skips without one.
 The inputs are the ones tests/test_torch_kernels.py holds the plain
 versions to against the JAX reference.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -666,6 +669,58 @@ def test_cuda_sgd_engine_equals_oracle(cuda_device, capacity):
     assert np.asarray(res.final_certificates, np.float32).view(np.int32).tolist() == \
         orc.certs.view(np.int32).tolist()
     assert res.messages_accepted > 0 and np.all(np.diff(orc.history, axis=0) <= 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tracer_adds_no_device_interval(cuda_device, monkeypatch):
+    """With the program's tracer on, a profiler with CUDA activity sees
+    each span only as a host event: no CUDA-typed event bears a span's
+    name, and the device's busy time (the benchmark's union of kernel,
+    copy and fill intervals) over TMSN-SGD engine runs is within 2 % of
+    the same runs with the tracer off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.core.engine import EngineConfig, TMSNEngine
+    from repro_torch.core.sgd_worker import lm_sgd_worker
+    from repro_torch.core.tmsn_sgd import TMSNSGDConfig
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.optim import AdamWConfig
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1] / "bench"))
+    from harness.trace import read_profile
+
+    arch = ArchConfig(name="tracer-card", arch_type="llama", num_layers=2, d_model=1024, num_heads=8,
+                      num_kv_heads=4, d_ff=4096, vocab=32000, compute_dtype="bfloat16")
+    worker = lm_sgd_worker(arch, AdamWConfig(lr=1e-3), TMSNSGDConfig(local_steps=2, ema=0.8),
+                           batch_size=4, seq=256, device=cuda_device)
+    cfg = EngineConfig(n_workers=2, eps=0.0, max_rounds=4, delay_rounds=1, seed=0, fault_spec="",
+                       rounds_per_dispatch=1, inflight_capacity=0, control_plane="dense",
+                       gossip_mode="dense", spare_slots=0, publish_every_k=0, round_step_impl="pallas")
+    TMSNEngine(worker, cfg, device=cuda_device).run()  # warm
+    busy, names = {True: 0.0, False: 0.0}, set()
+    try:
+        for on in (False, True, True, False):
+            if on:
+                trace.enable()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                TMSNEngine(worker, cfg, device=cuda_device).run()
+                torch.cuda.synchronize()
+            trace.disable()
+            got = {s["name"] for s in trace.collect()["spans"]}
+            assert bool(got) == on
+            names |= got
+            events = list(prof.events())
+            host = {e.name for e in events if not str(e.device_type).endswith("CUDA")}
+            assert not [e.name for e in events if str(e.device_type).endswith("CUDA") and e.name in names]
+            assert got <= host
+            busy[on] += read_profile(prof, 1.0)["busy_s"]
+    finally:
+        trace.disable()
+        trace.collect()
+    assert {"engine.round", "engine.ring", "sgd.adamw", "sgd.backward"} <= names
+    assert abs(busy[True] - busy[False]) <= 0.02 * busy[False], busy
 
 
 # ---------------------------------------------------------------------------
