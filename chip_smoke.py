@@ -33,7 +33,13 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              kept between launches zero after each, in this process and in
              K1_REPEAT_PROCESSES fresh ones (``chip_smoke.py --k1-repeat N``),
              then compute-sanitizer's racecheck where the machine has it
-             (its result recorded, not held);
+             (its result recorded, not held); K5 adamw_step at Yi-9B's
+             one-layer leaf shapes (12 leaves, 697 315 328 parameters, one
+             launch) bit for bit the plain AdamW update for each pair of
+             float32/bfloat16 params and moments and on a second launch,
+             and at float32 its device and CUDA-event ms beside the bytes
+             bound, the plain update's and torch._fused_adamw_'s (a
+             yardstick; ``chip_smoke.py --k5`` runs the build and K5 alone);
   small_ref  a small run of the whole slice on the card (kernels) against
              the same run on the CPU (plain versions);
   main       the paper's configuration (configs/sparrow.py: n=200 000,
@@ -113,11 +119,13 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              events at each segment's start), tokens/s, achieved TFLOP/s
              (6 x matmul params x tokens), ms of a forward+backward and of
              an AdamW step, the device idle share and top kernels over 2
-             profiled rounds, peak memory; then the best model serves: a
+             profiled rounds, peak memory; the run's K5 launches, one
+             a worker step (held; K5's ``launches`` in the kernels line);
+             then the best model serves: a
              2 x 128 prefill and 16 cached decode steps at scalar and at
              per-row pos (bit for bit alike), each position's logits within
              LM_BF16_TOL of the full forward. No TPU kernel lies on this
-             path, so the kernels line is unchanged;
+             path; K5 is the port's own;
   serve_small_ref  the continuous-batching server (launch/serving.py) on
              reduced(yi_9b) in float32, built on the CPU from a seed: a run
              with continuous admission (10 requests over 4 slots) and one
@@ -231,7 +239,8 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              production meshes and the TMSN round of the train shapes
              (meta device): counts by status, 0 errors, and the records
              whose arguments do not fit one card's 80 GB. The launch
-             phases launch none of K1-K4 (launches_train, launches_ckpt,
+             phases launch none of K1-K4; K5 launches once an AdamW step
+             in train and sharded_sgd (launches_train, launches_ckpt,
              launches_sharded_sgd, launches_dryrun in the kernels line).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -662,8 +671,9 @@ def lm_small_ref_phase() -> None:
         f"seconds={time.perf_counter() - t0:.3f}")
 
 
-def lm_sgd_phase() -> None:
-    """TMSN-SGD at Yi-9B's full width on the card (see the module doc)."""
+def lm_sgd_phase() -> int:
+    """TMSN-SGD at Yi-9B's full width on the card (see the module doc).
+    Returns the K5 launches of the main run."""
     import gc
 
     import numpy as np
@@ -673,6 +683,7 @@ def lm_sgd_phase() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import TMSNEngine, TMSNSGDConfig, lm_sgd_worker, oracle_run
     from repro_torch.data.tokens import stream_tokens, synthetic_token_batch
+    from repro_torch.kernels import ops
     from repro_torch.models import decode_step, init_cache, init_params, loss_fn, param_count, prefill
     from repro_torch.models.config import layer_segments
     from repro_torch.models.model import _embed, _logits, _positions
@@ -698,10 +709,16 @@ def lm_sgd_phase() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     clock_a = RoundClock(worker)
+    ops.reset_launches()
     t0 = time.perf_counter()
     res = TMSNEngine(clock_a, engine_config(LM_W, LM_ROUNDS, False), device="cuda").run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # every worker steps in every round, and each step is one K5 launch
+    adamw_launches = ops.LAUNCHES["adamw_step"]
+    if adamw_launches != LM_W * LM_K * LM_ROUNDS:
+        raise AssertionError(f"lm_sgd: {adamw_launches} K5 launches, not one a step "
+                             f"({LM_W} x {LM_K} x {LM_ROUNDS})")
     peak_run = torch.cuda.max_memory_allocated()
     rows_a, sums_a = history_rows(res, LM_W, LM_K), clock_a.sums_np()
     periods = clock_a.periods_ms()
@@ -716,7 +733,8 @@ def lm_sgd_phase() -> None:
         f"achieved_tflops={flop_per_round / (round_ms / 1e3) / 1e12:.2f} "
         f"bf16_peak_share={flop_per_round / (round_ms / 1e3) / BF16_OPS_PER_S:.4f} "
         f"sent={res.messages_sent} accepted={res.messages_accepted} history_changes={fires} "
-        f"payload_bytes={payload} certificates={rows_a.tolist()} max_memory_allocated={peak_run}")
+        f"payload_bytes={payload} certificates={rows_a.tolist()} max_memory_allocated={peak_run} "
+        f"adamw_step_launches={adamw_launches}")
     if res.rounds != LM_ROUNDS or not np.all(np.isfinite(rows_a)) or np.any(np.diff(rows_a, axis=0) > 0):
         raise AssertionError(f"lm_sgd: certificates not finite and monotone: {rows_a.tolist()}")
     if fires < 1 or res.messages_sent < 1:
@@ -2179,6 +2197,118 @@ def dryrun_phase() -> None:
         raise AssertionError("dryrun: " + "; ".join(errors))
 
 
+# ---------------------------------------------------------------------------
+# K5 adamw_step (in the kernels phase; ``chip_smoke.py --k5`` runs it alone)
+# ---------------------------------------------------------------------------
+
+#: leaf dtype pairs (params and grads, moments) K5 is checked at; the first
+#: is the benchmark's, and sets the times
+K5_PAIRS = (("float32", "float32"), ("bfloat16", "float32"), ("float32", "bfloat16"),
+            ("bfloat16", "bfloat16"))
+
+
+def k5_check(time_ms, device_ms) -> dict:
+    """K5 at Yi-9B's one-layer leaf shapes (LM_ARCH, 1 layer: 697 315 328
+    parameters in 12 leaves), one launch a step: bit for bit
+    ``optim.adamw._update`` for every pair of K5_PAIRS and on a second
+    launch; at the first pair, device ms (the mean of the profiler's
+    records of K5's kernel, with their count),
+    CUDA-event ms of the in-place step, the bytes bound, the plain
+    version's times and ``torch._fused_adamw_``'s (a yardstick only: the
+    port never calls it; its update is another formula). Returns the
+    kernels line's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _corrections, _update
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=1)
+    shapes = [tuple(a.shape) for a in tree_leaves(init_params(cfg, SEED, device="meta"))]
+    n = sum(int(torch.Size(s).numel()) for s in shapes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rec = {"name": "adamw_step", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw_step.cu",
+           "replaces": "none (the reference's update is plain jnp, fused by XLA)", "launches": None,
+           "max_abs_err": 0.0, "params": n, "leaves": len(shapes)}
+    for pdt, sdt in K5_PAIRS:
+        opt_cfg = AdamWConfig(lr=3e-4, state_dtype=sdt)
+        pt, st = getattr(torch, pdt), getattr(torch, sdt)
+        leaves = []
+        for s in shapes:
+            v = [torch.randn(s, generator=gen, device=dev) * k for k in (1.0, 1e-2, 1e-2, 1e-4)]
+            leaves.append((v[0].to(pt), v[1].to(pt), v[2].to(st), v[3].abs().to(st)))
+            del v
+        step = torch.full((), 7, dtype=torch.int32, device=dev)
+        b1c, b2c = _corrections(step, opt_cfg)
+        outs = [(torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)) for p, _, mu, nu in leaves]
+        table = [(*leaf, *out) for leaf, out in zip(leaves, outs)]
+        same = True
+        for _ in range(2):
+            ops.reset_launches()
+            ops.adamw_step(table, b1c, b2c, opt_cfg.lr, opt_cfg)
+            torch.cuda.synchronize()
+            if ops.LAUNCHES["adamw_step"] != 1:
+                raise AssertionError(f"K5 {pdt}/{sdt}: {ops.LAUNCHES['adamw_step']} launches for one step")
+            for (p, g, mu, nu), got in zip(leaves, outs):
+                want = _update(p, g, mu, nu, b1c, b2c, opt_cfg.lr, opt_cfg)
+                same = same and all(torch.equal(a, b) for a, b in zip(got, want))
+                del want
+        del outs, table
+        if not same:
+            raise AssertionError(f"K5 {pdt}/{sdt}: not the plain update's bits")
+        line = (f"phase kernels K5 adamw_step params={pdt} state={sdt} leaves={len(shapes)} n={n} "
+                "bitwise_equal=True")
+        if (pdt, sdt) == K5_PAIRS[0]:
+            # the in-place step, as the SGD worker runs it from its second step
+            inplace = [(p, g, mu, nu, p, mu, nu) for p, g, mu, nu in leaves]
+            ms = time_ms(lambda: ops.adamw_step(inplace, b1c, b2c, opt_cfg.lr, opt_cfg), reps=5, samples=9)
+            # K5's own kernel records, their mean and their count: a record
+            # the profiler drops leaves the others' times as they are
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    ops.adamw_step(inplace, b1c, b2c, opt_cfg.lr, opt_cfg)
+                torch.cuda.synchronize()
+            k5_recs = [e for e in prof.key_averages() if "adamw_step_kernel" in e.key]
+            n_recs = sum(e.count for e in k5_recs)
+            dev_ms = sum(e.self_device_time_total for e in k5_recs) / n_recs / 1e3 if n_recs else None
+            del prof
+
+            def plain():
+                for p, g, mu, nu in leaves:
+                    _update(p, g, mu, nu, b1c, b2c, opt_cfg.lr, opt_cfg, out=(p, mu, nu))
+
+            plain_ms = time_ms(plain, reps=2, samples=5)
+            plain_dev_ms = device_ms(plain, reps=2)
+            ps, gs, ms_, ns = (list(x) for x in zip(*leaves))
+            steps = [torch.full((), 7.0, device=dev) for _ in leaves]
+
+            def fused():
+                torch._fused_adamw_(ps, gs, ms_, ns, [], steps, lr=opt_cfg.lr, beta1=opt_cfg.b1,
+                                    beta2=opt_cfg.b2, weight_decay=opt_cfg.weight_decay, eps=opt_cfg.eps,
+                                    amsgrad=False, maximize=False)
+
+            lib_ms = time_ms(fused, reps=5, samples=9)
+            lib_dev_ms = device_ms(fused, reps=5)
+            bnd = bound(28 * n, 20 * n)
+            rec.update(ms=ms, device_ms=dev_ms, device_records=f"{n_recs} of 5", plain_ms=plain_ms,
+                       plain_device_ms=plain_dev_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                       roofline_share=bnd[0] / dev_ms if dev_ms else None)
+            line += (f" ms={ms:.5f} device_ms={dev_ms} device_records={n_recs}/5 plain_ms={plain_ms:.5f} "
+                     f"plain_device_ms={plain_dev_ms} fused_adamw_ms={lib_ms:.5f} "
+                     f"fused_adamw_device_ms={lib_dev_ms} "
+                     f"bound_ms={bnd[0]:.5f} ({bnd[1]}) share_of_bound={rec['roofline_share']}")
+        log(line)
+        del leaves
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2263,6 +2393,9 @@ def main() -> int:
         return statistics.median(out)
 
     records = {}
+    if sys.argv[1:2] == ["--k5"]:  # K5 alone: its checks and times, the kernels line its record
+        log(json.dumps({"kernels": [k5_check(time_ms, device_ms)]}))
+        return 0
 
     # the launch floor: device time of the smallest kernel PyTorch launches
     one = torch.empty((1,), device=dev)
@@ -2597,6 +2730,7 @@ def main() -> int:
             log(f"phase kernels K4 weight_update n={n} d={d} B={nb} deterministic={det} "
                 f"max_abs_err={err:.3g} w_max_rel_err={w_rel:.3g}")
         del xb, y, ml, ms_, got, again, plain
+    records["adamw_step"] = k5_check(time_ms, device_ms)
     log("phase kernels ok")
 
     # ------------------------------------------------------------- small_ref
@@ -3248,11 +3382,19 @@ def main() -> int:
     if not (bloss < 1.0 and berr < minority):
         raise AssertionError(f"baselines: bsp test loss {bloss}, error {berr}")
 
+    def note_launches(name: str, ranks: dict) -> None:
+        """K1-K5 launches of the phase just run, in this process and its ranks."""
+        for k, rec in records.items():
+            rec[f"launches_{name}"] = ops.LAUNCHES[k] + ranks.get(k, 0)
+        log(f"phase {name} launches={json.dumps({k: rec[f'launches_{name}'] for k, rec in records.items()})}")
+
     # ---------------------------------------------------------- lm_small_ref
+    ops.reset_launches()
     lm_small_ref_phase()
+    note_launches("lm_small_ref", {})
 
     # ---------------------------------------------------------------- lm_sgd
-    lm_sgd_phase()
+    records["adamw_step"]["launches"] = lm_sgd_phase()
 
     # ------------------------------------------------------- serve_small_ref
     ops.reset_launches()
@@ -3288,12 +3430,6 @@ def main() -> int:
         rec["launches_encdec"] = encdec_launches[k]
 
     # ------------------------------------------------------- the launch tooling
-    def note_launches(name: str, ranks: dict) -> None:
-        """K1-K4 launches of the phase just run, in this process and its ranks."""
-        for k, rec in records.items():
-            rec[f"launches_{name}"] = ops.LAUNCHES[k] + ranks.get(k, 0)
-        log(f"phase {name} launches={json.dumps({k: rec[f'launches_{name}'] for k, rec in records.items()})}")
-
     ops.reset_launches()
     trained = train_phase()
     note_launches("train", {})
@@ -3307,7 +3443,7 @@ def main() -> int:
     dryrun_phase()
     note_launches("dryrun", {})
 
-    log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update")]}))
+    log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update", "adamw_step")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), their
-wrappers (:mod:`.ops`) and their plain PyTorch versions (:mod:`.ref`).
+wrappers (:mod:`.ops`) and their plain PyTorch versions (:mod:`.ref`;
+K5's, the AdamW update, is ``repro_torch.optim.adamw._update``).
 The library is built with ``nvcc`` at first use (:mod:`.build`), never
 at import. :func:`scatter_model_slice` prepares kernel K4's operands
 from a model slice."""

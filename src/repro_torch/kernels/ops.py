@@ -1,13 +1,16 @@
 """Wrappers of the hand-written CUDA kernels (K1 ``edge_scan``, K2
-``round_deliver``, K3 ``queue_ingest``, K4 ``weight_update``), and
-``edge_scan_sharded``, K1 over one rank's workers of a mesh.
+``round_deliver``, K3 ``queue_ingest``, K4 ``weight_update``, K5
+``adamw_step``), and ``edge_scan_sharded``, K1 over one rank's workers
+of a mesh.
 
 Counterpart of ``src/repro/kernels/ops.py``. Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``
 (K1 also keeps scratch per device and stream, reused across calls) and
 then:
 
-  * on CPU tensors calls the plain version in :mod:`.ref`;
+  * on CPU tensors calls the plain version in :mod:`.ref` (K5 has none
+    here and raises: ``optim.adamw.apply_updates_`` sends CPU leaves to
+    its plain update, ``_update``);
   * on CUDA tensors launches its kernel on the current stream (building
     the library at first use) and raises if the launch is refused, and
     counts the launch in :data:`LAUNCHES`;
@@ -18,6 +21,7 @@ There is no fallback from a failed build or launch to the plain version.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -27,7 +31,7 @@ from repro_torch.kernels import ref
 
 #: launches per kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0}
+LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0, "adamw_step": 0}
 
 #: K1 plan: aim for this many 256-thread blocks per SM ...
 EDGE_SCAN_BLOCKS_PER_SM = 2
@@ -42,6 +46,11 @@ _QUEUE_INGEST_THREADS = 256
 ROUND_STEP_MAX_WARPS = 8
 #: rows per K4 block (one thread per row)
 WEIGHT_UPDATE_TILE_N = 128
+#: leaves one K5 launch takes: their table travels as the kernel's
+#: parameters, 4 KB (``kMaxLeaves`` in ``adamw_step.cu``)
+ADAMW_MAX_LEAVES = 48
+#: K5's parameter/grad and state dtypes (all four pairs are compiled)
+_ADAMW_DTYPES = (torch.float32, torch.bfloat16)
 #: shared memory one block may use on an H100 (232 448 B, opted in above 48 KB)
 _MAX_BLOCK_SMEM = 232_448
 
@@ -385,8 +394,79 @@ def weight_update(
     return m_new, w
 
 
+def adamw_step_plan(n_leaves: int) -> list[tuple[int, int]]:
+    """K5's launches for ``n_leaves`` leaves of one dtype pair: ``(start,
+    end)`` runs of consecutive leaves, at most :data:`ADAMW_MAX_LEAVES` a
+    launch."""
+    m = ADAMW_MAX_LEAVES
+    return [(i, min(i + m, n_leaves)) for i in range(0, n_leaves, m)]
+
+
+def adamw_step(leaves: list, b1c: torch.Tensor, b2c: torch.Tensor, lr: float | torch.Tensor, cfg) -> None:
+    """K5: one AdamW step over ``leaves``, a list of ``(p, g, mu, nu, p',
+    mu', nu')`` tuples (the outputs may be the inputs: in place), written
+    into the outputs. ``b1c``/``b2c`` are the one-element float32 bias
+    corrections, ``lr`` a float or a one-element tensor, ``cfg`` an
+    :class:`~repro_torch.optim.AdamWConfig` (``b1``, ``b2``, ``eps``,
+    ``weight_decay``, ``state_dtype``). Params, grads and ``p'`` share a
+    dtype, float32 or bfloat16; the moments are ``cfg``'s state dtype.
+    Same contract as ``optim.adamw._update`` leaf by leaf, bit for bit.
+    One launch takes up to :data:`ADAMW_MAX_LEAVES` leaves of one dtype
+    pair (:func:`adamw_step_plan`); the scalars are read through device
+    pointers, never with ``.item()``. CUDA leaves only: on any other
+    device it raises."""
+    sdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.state_dtype]
+    scalars = [b1c, b2c] + ([lr] if isinstance(lr, torch.Tensor) else [])
+    for name, t in zip(("b1c", "b2c", "lr"), scalars):
+        if not t.is_floating_point() or t.numel() != 1:
+            raise TypeError(f"adamw_step: {name} must be one float value, got {t.dtype} {tuple(t.shape)}")
+    for leaf in leaves:
+        if len(leaf) != 7:
+            raise ValueError(f"adamw_step: a leaf is (p, g, mu, nu, p', mu', nu'), got {len(leaf)} tensors")
+        p = leaf[0]
+        if p.dtype not in _ADAMW_DTYPES:
+            raise TypeError(f"adamw_step: params must be float32 or bfloat16, got {p.dtype}")
+        dts = (p.dtype, p.dtype, sdt, sdt, p.dtype, sdt, sdt)
+        for name, t, dt in zip(("p", "g", "mu", "nu", "p'", "mu'", "nu'"), leaf, dts):
+            _check(f"adamw_step {name}", t, dt, tuple(p.shape))
+    if not leaves:
+        return
+    if not _route("adamw_step", [t for leaf in leaves for t in leaf] + [b1c, b2c]):
+        raise ValueError("adamw_step: no plain version on the CPU (optim.adamw._update is one)")
+    dev = leaves[0][0].device
+    if isinstance(lr, torch.Tensor) and lr.device.type != "cpu":  # a host value is read as eager ops read it
+        if lr.device != dev:
+            raise ValueError(f"adamw_step: lr on {lr.device}, leaves on {dev}")
+        lr_t, lr_f = lr.reshape(()).to(torch.float32), 0.0
+    else:
+        lr_t, lr_f = None, float(lr)
+    b1c, b2c = (t.reshape(()).to(torch.float32) for t in (b1c, b2c))
+    from repro_torch.kernels.build import load_library
+
+    lib = load_library()
+    groups: dict = {}  # one launch sequence per param dtype (bf16 models keep some float32 leaves)
+    for leaf in leaves:
+        if leaf[0].numel():
+            groups.setdefault(leaf[0].dtype, []).append(leaf)
+    stream = _stream(dev)
+    for pdt, group in groups.items():
+        for lo, hi in adamw_step_plan(len(group)):
+            rows = [v for leaf in group[lo:hi] for v in (*(_ptr(t) for t in leaf), leaf[0].numel())]
+            table = (ctypes.c_longlong * len(rows))(*rows)
+            err = lib.adamw_step_launch(
+                table, hi - lo, int(pdt == torch.bfloat16), int(sdt == torch.bfloat16), _ptr(b1c), _ptr(b2c),
+                None if lr_t is None else _ptr(lr_t), lr_f, cfg.b1, 1 - cfg.b1, cfg.b2, 1 - cfg.b2, cfg.eps,
+                cfg.weight_decay, stream,
+            )
+            _raise_on("adamw_step", err)
+            LAUNCHES["adamw_step"] += 1
+
+
 __all__ = [
+    "ADAMW_MAX_LEAVES",
     "LAUNCHES",
+    "adamw_step",
+    "adamw_step_plan",
     "edge_scan",
     "edge_scan_plan",
     "edge_scan_sharded",

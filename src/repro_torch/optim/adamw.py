@@ -5,7 +5,12 @@ The reference's ops in its order: moments and the update in float32,
 the step an int32 counter, bias corrections ``1 - b ** step`` in
 float32, weight decay on every leaf (norms and embedding included). A
 ``state_dtype="bfloat16"`` rounds ``mu``/``nu`` on every write.
-:func:`apply_updates_` is the same step, bit for bit, in place.
+
+:func:`apply_updates_` writes the step in place or into given trees;
+:func:`apply_updates` allocates fresh trees and writes through it. Leaves
+on the card take kernel K5 (:func:`repro_torch.kernels.ops.adamw_step`),
+one launch for all of them; every other leaf takes :func:`_update`, the
+plain version, op by op. Both give the same bits.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Any
 
 import torch
 
+from repro_torch import trace
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -76,14 +83,12 @@ def apply_updates(
 ) -> tuple[Any, dict]:
     """One AdamW step; returns new ``(params, state)``. Leaves are matched
     by path (dict keys by name), as the reference's sorted flattening."""
-    step = state["step"] + 1
-    b1c, b2c = _corrections(step, cfg)
-    lr = cfg.lr if lr is None else lr
-    # each leaf of ``new`` is a (p, mu, nu) triple
-    new = tree_map(lambda p, g, mu, nu: _update(p, g, mu, nu, b1c, b2c, lr, cfg),
-                   params, grads, state["mu"], state["nu"])
-    new_p, new_mu, new_nu = (tree_map(lambda _, o, i=i: o[i], params, new) for i in range(3))
-    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}
+    like = lambda a: torch.empty(a.shape, dtype=_sdt(cfg), device=a.device)
+    new = (tree_map(torch.empty_like, params),
+           {"mu": tree_map(like, state["mu"]), "nu": tree_map(like, state["nu"]),
+            "step": torch.empty_like(state["step"])})
+    apply_updates_(params, grads, state, cfg, lr, out=new)
+    return new
 
 
 def apply_updates_(
@@ -92,13 +97,24 @@ def apply_updates_(
 ) -> None:
     """:func:`apply_updates` written into ``out = (params', state')``,
     trees of tensors shaped as the inputs (by default the inputs
-    themselves: an update in place). The same ops give the same bits,
-    and only one leaf's temporaries live at a time, where the functional
-    step holds a second copy of the model and its moments."""
+    themselves: an update in place). Leaves on the card go to K5 in one
+    launch (no temporaries); the others to :func:`_update` one at a time,
+    so that only one leaf's temporaries live at once. Counts the leaves of
+    each route (``adamw_leaves``, sites ``kernel`` and ``plain``)."""
     out_p, out_state = (params, state) if out is None else out
     step = state["step"] + 1
     b1c, b2c = _corrections(step, cfg)
     lr = cfg.lr if lr is None else lr
-    tree_map(lambda p, g, mu, nu, dp, dmu, dnu: _update(p, g, mu, nu, b1c, b2c, lr, cfg, out=(dp, dmu, dnu)),
-             params, grads, state["mu"], state["nu"], out_p, out_state["mu"], out_state["nu"])
+    leaves: list = []
+    tree_map(lambda *leaf: leaves.append(leaf), params, grads, state["mu"], state["nu"],
+             out_p, out_state["mu"], out_state["nu"])
+    card = [leaf for leaf in leaves if leaf[0].is_cuda]
+    plain = [leaf for leaf in leaves if not leaf[0].is_cuda]
+    if card:
+        ops.adamw_step(card, b1c, b2c, lr, cfg)
+        trace.count("adamw_leaves", len(card), "kernel")
+    for p, g, mu, nu, *dst in plain:
+        _update(p, g, mu, nu, b1c, b2c, lr, cfg, out=dst)
+    if plain:
+        trace.count("adamw_leaves", len(plain), "plain")
     out_state["step"].copy_(step)

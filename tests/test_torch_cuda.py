@@ -613,6 +613,190 @@ def test_cuda_pod_engine_four_ranks_share_the_card(cuda_device, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# K5 adamw_step: the SGD worker's AdamW step, bit for bit the plain update
+# ---------------------------------------------------------------------------
+
+_ADAMW_PAIRS = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32"),
+                ("bfloat16", "bfloat16")]
+#: odd lengths: no 16-byte vector covers them, the last tile is partial
+_ODD_SHAPES = [(1,), (7,), (1023,), (4097, 3), (4096 * 3 + 5,)]
+
+
+def _yi9b_l1_shapes():
+    """Every leaf shape of Yi-9B's one-layer model (embedding 64 000 x 4 096)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=1)
+    return [tuple(a.shape) for a in tree_leaves(init_params(cfg, 0, "meta"))]
+
+
+def _adamw_inputs(dev, shapes, pdt, sdt, seed, misaligned=()):
+    """(p, g, mu, nu) per shape, nu >= 0; the leaves whose index is in
+    ``misaligned`` start one element past a 16-byte boundary."""
+    import math
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(i, shape, dt, scale, positive=False):
+        n = math.prod(shape)
+        off = 1 if i in misaligned else 0
+        t = torch.empty((n + off,), dtype=dt, device=dev)[off:].view(shape)
+        v = torch.randn(shape, generator=gen, device=dev) * scale
+        t.copy_(v.abs() if positive else v)
+        return t
+
+    return [(draw(i, s, pdt, 1.0), draw(i, s, pdt, 1e-2), draw(i, s, sdt, 1e-2), draw(i, s, sdt, 1e-4, True))
+            for i, s in enumerate(shapes)]
+
+
+def _assert_plain(leaves, outs, b1c, b2c, lr, cfg):
+    """Each leaf's outputs equal ``_update``'s, bit for bit (one leaf's
+    plain step alive at a time)."""
+    from repro_torch.optim.adamw import _update
+
+    for (p, g, mu, nu), got in zip(leaves, outs):
+        want = _update(p, g, mu, nu, b1c, b2c, lr, cfg)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), tuple(p.shape)
+        del want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdt,sdt", _ADAMW_PAIRS)
+def test_cuda_adamw_step_equals_the_plain_update(cuda_device, pdt, sdt):
+    """K5 over every leaf shape of Yi-9B's one-layer model, odd lengths
+    and misaligned starts, in one launch: ``_update``'s bits, into other
+    tensors and in place, with lr a float and a 0-d tensor, and again on
+    a second launch."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _corrections
+
+    cfg = AdamWConfig(lr=3e-4, state_dtype=sdt)
+    pdt, sdt = getattr(torch, pdt), getattr(torch, sdt)
+    shapes = _yi9b_l1_shapes() + _ODD_SHAPES
+    n = len(shapes)
+    leaves = _adamw_inputs(cuda_device, shapes, pdt, sdt, 0, misaligned={1, n - 1, n - 3})
+    b1c, b2c = _corrections(torch.full((), 5, dtype=torch.int32, device=cuda_device), cfg)
+    outs = [(torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)) for p, _, mu, nu in leaves]
+    for lr in (cfg.lr, torch.full((), 1e-3, dtype=torch.float32, device=cuda_device)):
+        for _ in range(2):
+            tops.reset_launches()
+            tops.adamw_step([(*leaf, *out) for leaf, out in zip(leaves, outs)], b1c, b2c, lr, cfg)
+            assert tops.LAUNCHES["adamw_step"] == 1
+            _assert_plain(leaves, outs, b1c, b2c, lr, cfg)
+        # in place: the outputs are the inputs
+        for (p, _, mu, nu), out in zip(leaves, outs):
+            for dst, src in zip(out, (p, mu, nu)):
+                dst.copy_(src)
+        tops.adamw_step([(p2, g, m2, n2, p2, m2, n2) for (_, g, _, _), (p2, m2, n2) in zip(leaves, outs)],
+                        b1c, b2c, lr, cfg)
+        _assert_plain(leaves, outs, b1c, b2c, lr, cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_step_splits_a_large_table(cuda_device):
+    """More leaves than one launch's table, of two dtype pairs in one
+    call: one launch a run of at most ADAMW_MAX_LEAVES leaves of a pair,
+    every leaf ``_update``'s bits."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _corrections
+
+    cfg = AdamWConfig(lr=1e-2)
+    m = tops.ADAMW_MAX_LEAVES
+    shapes = [(1 + 37 * i,) for i in range(2 * m + 3)]
+    f32 = _adamw_inputs(cuda_device, shapes, torch.float32, torch.float32, 1, misaligned=set(range(0, 99, 7)))
+    bf16 = _adamw_inputs(cuda_device, shapes[:5], torch.bfloat16, torch.float32, 2)
+    leaves = f32[:m] + bf16 + f32[m:]
+    outs = [(torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)) for p, _, mu, nu in leaves]
+    b1c, b2c = _corrections(torch.full((), 2, dtype=torch.int32, device=cuda_device), cfg)
+    tops.reset_launches()
+    tops.adamw_step([(*leaf, *out) for leaf, out in zip(leaves, outs)], b1c, b2c, cfg.lr, cfg)
+    assert tops.LAUNCHES["adamw_step"] == 3 + 1
+    _assert_plain(leaves, outs, b1c, b2c, cfg.lr, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16"])
+def test_cuda_adamw_step_in_rows_as_the_segment(cuda_device, sdt):
+    """``apply_updates_`` as ``BatchedSGDWorker._segment`` calls it on
+    stacked (W, ...) state: step 0 from worker 1's rows of the old state
+    into its rows of the new one (the old rows read only, worker 0's new
+    rows untouched), steps 1 and 2 in place; one K5 launch a step, each
+    step ``_update``'s bits, counted as kernel leaves."""
+    from repro_torch import trace
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, apply_updates_, init_opt_state
+    from repro_torch.optim.adamw import _corrections, _update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = AdamWConfig(lr=1e-2, state_dtype=sdt)
+    one = init_params(_tiny_lm(), 0, cuda_device)
+    params = tree_map(lambda a: torch.stack([a, a + 0.5]), one)
+    opt = init_opt_state(params, cfg)
+    opt["step"] = torch.zeros((2,), dtype=torch.int32, device=cuda_device)
+    old = (params, opt)
+    new = tree_map(lambda a: torch.full_like(a, 7), old)
+    before = tree_map(torch.clone, old)
+    row = lambda t: tree_map(lambda a: a[1], t)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    trace.disable()
+    trace.collect()
+    trace.enable()
+    try:
+        for k in range(3):
+            src, dst = (row(old), row(new)) if k == 0 else (row(new), row(new))
+            grads = tree_map(lambda a: torch.randn(a.shape, generator=gen, device=cuda_device) * 1e-2, src[0])
+            b1c, b2c = _corrections(src[1]["step"] + 1, cfg)
+            want = [_update(p, g, mu, nu, b1c, b2c, cfg.lr, cfg) for p, g, mu, nu in
+                    zip(*(tree_leaves(t) for t in (src[0], grads, src[1]["mu"], src[1]["nu"])))]
+            tops.reset_launches()
+            apply_updates_(src[0], grads, src[1], cfg, out=dst)
+            assert tops.LAUNCHES["adamw_step"] == 1
+            got = zip(*(tree_leaves(t) for t in (dst[0], dst[1]["mu"], dst[1]["nu"])))
+            assert all(torch.equal(a, b) for g_, w in zip(got, want) for a, b in zip(g_, w))
+            assert int(dst[1]["step"]) == k + 1
+        counters = trace.collect()["counters"]
+    finally:
+        trace.disable()
+        trace.collect()
+    assert counters["adamw_leaves"] == {"kernel": 3 * len(tree_leaves(one))}
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(old), tree_leaves(before)))
+    assert all(bool((a[0] == 7).all()) for a in tree_leaves(new))
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_step_forces_no_sync(cuda_device):
+    """A step through ``apply_updates_`` and ``apply_updates`` (lr a float
+    and a 0-d tensor on the card) under the sync debug mode "error": no
+    call waits for the card."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, apply_updates, apply_updates_, init_opt_state
+    from repro_torch.tree import tree_map
+
+    cfg = AdamWConfig(lr=1e-2)
+    params = init_params(_tiny_lm(), 0, cuda_device)
+    grads = tree_map(lambda a: torch.full_like(a, 1e-3), params)
+    opt = init_opt_state(params, cfg)
+    lr = torch.full((), 2e-3, dtype=torch.float32, device=cuda_device)
+    apply_updates_(params, grads, opt, cfg)  # warm: builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        apply_updates_(params, grads, opt, cfg)
+        apply_updates_(params, grads, opt, cfg, lr=lr)
+        params, opt = apply_updates(params, grads, opt, cfg, lr=lr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(opt["step"]) == 4
+
+
+# ---------------------------------------------------------------------------
 # the LM stack and TMSN-SGD (no TPU kernel on this path: eager PyTorch)
 # ---------------------------------------------------------------------------
 

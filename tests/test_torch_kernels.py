@@ -1,5 +1,8 @@
 """The port's kernels (K1 edge_scan, K2 round_step, K3 queue_ingest, K4
-weight_update with scatter_model_slice) held against the JAX reference.
+weight_update with scatter_model_slice) held against the JAX reference;
+K5 adamw_step's input checks and its split of the leaf table into
+launches (K5 runs on the card only; its plain version is the port's AdamW
+update, held to the reference in tests/test_torch_sgd.py).
 
 On the CPU each wrapper in ``repro_torch.kernels.ops`` runs its plain
 PyTorch version; these tests hold that against the reference's Pallas
@@ -14,6 +17,9 @@ as their int32 bit patterns, so -0.0 differs from +0.0); K4 at rtol 1e-4
 tests/test_torch_cuda.py holds the CUDA kernels themselves against
 these plain versions on the card.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +37,8 @@ from repro_torch.boosting.stumps import StumpModel as TStumpModel  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import scatter_model_slice as t_scatter  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim.adamw import _corrections  # noqa: E402
 
 # the reference oracles, compiled once per shape instead of op by op
 _round_step_ref = jax.jit(jref.round_step_ref, static_argnames="eps")
@@ -535,7 +543,8 @@ def test_launch_counts_only_count_kernel_launches():
     tops.queue_ingest(*[_t(a) for a in _ingest_inputs(0, 4, 3, 2)])
     xb, y, ml, ms, a, c = _weight_inputs(0, 9, 4, 8)
     tops.weight_update(_t(xb), _t(y), _t(ml), _t(ms), _t(a), _t(c), num_bins=8)
-    assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0}
+    assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0,
+                             "adamw_step": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -660,3 +669,80 @@ class TestWeightUpdate:
             tops.weight_update(xb[0], y, ml, ms, a, c, num_bins=8)
         with pytest.raises(ValueError):
             tops.weight_update(xb, y, ml, ms, torch.zeros((4, 32)), c, num_bins=33)
+
+
+# ---------------------------------------------------------------------------
+# K5 adamw_step: the wrapper's checks and its launch plan
+# ---------------------------------------------------------------------------
+
+_ADAMW_CFG = AdamWConfig(lr=1e-2)
+
+
+def _adamw_scalars(step=3, lr=1e-2):
+    b1c, b2c = _corrections(torch.tensor(step, dtype=torch.int32), _ADAMW_CFG)
+    return b1c, b2c, lr
+
+
+def _adamw_leaves(seed, shapes, pdt, sdt):
+    """(p, g, mu, nu, p', mu', nu') per shape, the outputs distinct tensors."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, dt, scale=1.0, positive=False):
+        a = rng.normal(size=shape) * scale
+        return torch.from_numpy((np.abs(a) if positive else a).astype(np.float32)).to(dt)
+
+    return [(draw(s, pdt), draw(s, pdt, 1e-2), draw(s, sdt, 1e-2), draw(s, sdt, 1e-4, True),
+             torch.empty(s, dtype=pdt), torch.empty(s, dtype=sdt), torch.empty(s, dtype=sdt)) for s in shapes]
+
+
+@pytest.mark.parametrize("n", [0, 1, 13, 48, 49, 104])
+def test_adamw_step_plan_splits_the_table_at_its_limit(n):
+    """K5's launches cover the leaves once, in order, at most
+    ``ADAMW_MAX_LEAVES`` a launch, in as few launches as that allows."""
+    m = tops.ADAMW_MAX_LEAVES
+    runs = tops.adamw_step_plan(n)
+    assert [i for lo, hi in runs for i in range(lo, hi)] == list(range(n))
+    assert all(1 <= hi - lo <= m for lo, hi in runs)
+    assert len(runs) == -(-n // m)
+
+
+def test_adamw_step_plan_limit_is_the_kernels_table():
+    """The limit is the table ``adamw_step.cu`` compiles, and one launch
+    holds a one-layer model's leaves."""
+    src = (Path(tops.__file__).parent / "csrc" / "adamw_step.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxLeaves = (\d+);", src).group(1)) == tops.ADAMW_MAX_LEAVES
+    assert tops.adamw_step_plan(13) == [(0, 13)]
+
+
+def test_adamw_step_checks_its_inputs():
+    """Leaves off the card (K5 has no plain version; ``apply_updates_``
+    sends them to ``_update``), dtypes other than float32/bfloat16, a state
+    dtype other than the config's, mismatched shapes, a non-contiguous
+    leaf, a leaf that is not seven tensors and a correction of more than
+    one value all raise, and nothing launches."""
+    b1c, b2c, lr = _adamw_scalars()
+    f32 = torch.float32
+
+    def call(leaf, **kw):
+        tops.adamw_step([leaf], kw.get("b1c", b1c), b2c, lr, _ADAMW_CFG)
+
+    good = _adamw_leaves(2, [(4, 6)], f32, f32)[0]
+    before = [t.clone() for t in good[4:]]
+    tops.reset_launches()
+    with pytest.raises(ValueError, match="no plain version"):
+        call(good)
+    assert tops.LAUNCHES["adamw_step"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(good[4:], before))
+    tops.adamw_step([], b1c, b2c, lr, _ADAMW_CFG)
+    with pytest.raises(TypeError):
+        call(tuple(t.half() for t in good))
+    with pytest.raises(TypeError):
+        call(good[:2] + (good[2].bfloat16(),) + good[3:])
+    with pytest.raises(ValueError):
+        call(good[:1] + (good[1][:3],) + good[2:])
+    with pytest.raises(ValueError):
+        call(good[:4] + (torch.empty((6, 4), dtype=f32).t(),) + good[5:])
+    with pytest.raises(ValueError):
+        call(good[:6])
+    with pytest.raises(TypeError):
+        call(good, b1c=torch.ones(2))

@@ -186,6 +186,62 @@ def test_in_place_step_is_the_functional_step(state_dtype, into):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def test_cpu_leaves_take_the_plain_update(monkeypatch):
+    """On CPU leaves ``apply_updates_`` runs ``_update`` once a leaf, in
+    place and into other trees, and launches no K5: the bits are
+    ``_update``'s."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.optim import adamw as tadamw
+
+    rng = np.random.default_rng(2)
+    cfg = AdamWConfig(lr=1e-2)
+    draw = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    params = {"a": draw(4, 3), "b": [draw(5), draw(2, 2)]}
+    grads = tree_map(lambda a: draw(*a.shape), params)
+    opt = init_opt_state(params, cfg)
+    b1c, b2c = tadamw._corrections(opt["step"] + 1, cfg)
+    want = [tadamw._update(p, g, mu, nu, b1c, b2c, cfg.lr, cfg) for p, g, mu, nu in
+            zip(*(tree_leaves(t) for t in (params, grads, opt["mu"], opt["nu"])))]
+    calls = []
+    plain = tadamw._update
+    monkeypatch.setattr(tadamw, "_update", lambda *a, **kw: calls.append(a[0].shape) or plain(*a, **kw))
+    tops.reset_launches()
+    out = tree_map(torch.empty_like, (params, opt))
+    apply_updates_(params, grads, opt, cfg, out=out)
+    apply_updates_(params, grads, opt, cfg)
+    assert len(calls) == 2 * len(want) and tops.LAUNCHES["adamw_step"] == 0
+    for p_, o_ in (out, (params, opt)):
+        got = zip(*(tree_leaves(t) for t in (p_, o_["mu"], o_["nu"])))
+        assert all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+        assert int(o_["step"]) == 1
+
+
+def test_adamw_leaves_counts_each_leaf_once():
+    """The ``adamw_leaves`` counter adds one a leaf a step, at its route:
+    a masked-out worker steps no leaf, and CPU leaves are ``plain``."""
+    from repro_torch import trace
+
+    worker = port_worker(reference_draws=False)
+    state = worker.init_batch(W, 0)
+    n_leaves = len(tree_leaves(state.params))
+    mask = torch.tensor([True, False, True, True])
+    trace.disable()
+    trace.collect()
+    trace.enable()
+    try:
+        worker.scan_round(state, mask)
+        after_scan = dict(trace.collect()["counters"])
+        params = tree_map(lambda a: a[0].clone(), state.params)
+        opt = init_opt_state(params, AdamWConfig())
+        apply_updates_(params, tree_map(torch.ones_like, params), opt, AdamWConfig())
+        after_step = dict(trace.collect()["counters"])
+    finally:
+        trace.disable()
+        trace.collect()
+    assert after_scan["adamw_leaves"] == {"plain": 3 * K * n_leaves}
+    assert after_step == {"adamw_leaves": {"plain": n_leaves}}
+
+
 def test_warmup_cosine_matches_reference():
     for step in (0, 1, 5, 10, 11, 50, 99, 100, 150):
         got = warmup_cosine(step, 3e-4, warmup=10, total=100)
