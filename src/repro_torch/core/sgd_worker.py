@@ -74,7 +74,12 @@ class BatchedSGDWorker:
     ``init_fn(seed) -> params`` builds one (unbatched) model on
     ``device``; ``loss_fn(params, batch) -> (loss, aux)`` is the per-step
     objective; ``batch_fn(stream, draw) -> batch`` returns one segment's
-    batch pytree with leaves ``(K, batch, ...)``.
+    batch pytree with leaves ``(K, batch, ...)``. The model may hold state
+    that is not trained: ``trained(path) -> bool`` names the leaves AdamW
+    steps (the others get no moments), and ``state_step(params, aux)``
+    sets the state in place after each optimizer step from the step's
+    ``aux`` (for :mod:`repro_torch.models`: ``models.trained`` and
+    ``models.state_step_``, the routers' selection bias).
     """
 
     def __init__(
@@ -85,8 +90,12 @@ class BatchedSGDWorker:
         opt_cfg: AdamWConfig,
         sgd_cfg: TMSNSGDConfig | None = None,
         device="cuda",
+        trained: Callable[[tuple], bool] | None = None,
+        state_step: Callable[[Any, Any], None] | None = None,
     ) -> None:
         self._init_fn = init_fn
+        self._trained = trained
+        self._state_step = state_step
         self._loss_fn = loss_fn
         self._batch_fn = batch_fn
         self._opt_cfg = opt_cfg
@@ -101,7 +110,7 @@ class BatchedSGDWorker:
         # every worker starts from the SAME H_0 (paper §2); divergence
         # comes from the independent per-worker batch streams
         params = tree_map(lambda a: a.unsqueeze(0).expand((n_workers,) + a.shape).clone(), params)
-        opt = init_opt_state(params, self._opt_cfg)
+        opt = init_opt_state(params, self._opt_cfg, trained=self._trained)
         opt["step"] = torch.zeros((n_workers,), dtype=torch.int32, device=self.device)
         inf = torch.full((n_workers,), float("inf"), dtype=torch.float32, device=self.device)
         return BatchedSGDState(
@@ -123,7 +132,8 @@ class BatchedSGDWorker:
         """K AdamW steps of one worker from its rows ``src = (params,
         opt)`` of the old state into its rows ``dst`` of the new one (the
         first step reads ``src``, the rest update ``dst`` in place);
-        returns the K step losses."""
+        returns the K step losses. After each optimizer step the model's
+        state (``state_step``) is set from the step's aux."""
         losses = []
         for k in range(int(self.cfg.local_steps)):
             params, opt = src if k == 0 else dst
@@ -131,7 +141,7 @@ class BatchedSGDWorker:
             leaves = tree_map(lambda a: a.detach().requires_grad_(True), params)
             with torch.enable_grad():
                 with trace.span("sgd.forward", step=k):
-                    loss, _aux = self._loss_fn(leaves, batch)
+                    loss, aux = self._loss_fn(leaves, batch)
                 with trace.span("sgd.backward", step=k):
                     loss.backward()
             grads = tree_map(lambda a: a.grad, leaves)
@@ -139,6 +149,9 @@ class BatchedSGDWorker:
             with trace.span("sgd.adamw", step=k):
                 apply_updates_(params, grads, opt, self._opt_cfg, out=dst)
             del grads
+            if self._state_step is not None:
+                self._state_step(dst[0], aux)
+            del aux
             losses.append(loss.detach())
         return torch.stack(losses)
 
@@ -221,7 +234,7 @@ def lm_sgd_worker(
     on ``device``); ``init(seed) -> params`` the initial model (default:
     :func:`repro_torch.models.init_params` on ``device``)."""
     from repro_torch.data.tokens import stream_tokens, synthetic_token_batch
-    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import init_params, loss_fn, state_step_, trained
 
     dev = resolve_device(device)
     sgd_cfg = TMSNSGDConfig() if sgd_cfg is None else sgd_cfg
@@ -240,4 +253,6 @@ def lm_sgd_worker(
         opt_cfg=opt_cfg,
         sgd_cfg=sgd_cfg,
         device=dev,
+        trained=trained,
+        state_step=lambda params, aux: state_step_(params, arch_cfg, aux),
     )

@@ -15,6 +15,8 @@ from repro_torch.models.model import (
     decode_step,
     init_cache,
     param_count,
+    state_step_,
+    trained,
 )
 
 __all__ = [
@@ -27,4 +29,6 @@ __all__ = [
     "decode_step",
     "init_cache",
     "param_count",
+    "state_step_",
+    "trained",
 ]

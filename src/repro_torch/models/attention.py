@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _normal, apply_rope, init_linear, init_rms_norm, rms_norm, rope_freqs
 
@@ -204,11 +205,12 @@ def _mla_kv_latent(params, x, positions, cfg: ArchConfig):
 
 
 def _mla_attend(params, q_lat, q_rope, c_kv, k_rope, mask, cfg: ArchConfig, dtype):
-    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    scores = torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv) + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
-    scores = torch.where(mask[:, None, :, :], scores.to(torch.float32) * scale, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(dtype)
-    out_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+    with trace.span("mla.attend"):
+        scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+        scores = torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv) + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
+        scores = torch.where(mask[:, None, :, :], scores.to(torch.float32) * scale, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(dtype)
+        out_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
     v = torch.einsum("bqhr,hrv->bqhv", out_lat, params["wkv_b_v"].to(dtype))
     b, s = v.shape[0], v.shape[1]
     out = v.reshape(b, s, cfg.num_heads * cfg.v_head_dim)

@@ -1,6 +1,8 @@
 """Architecture config schema + the layer-pattern machinery; a copy of
 ``src/repro/models/config.py`` (framework-neutral), kept here so the
-port imports nothing of the reference.
+port imports nothing of the reference, plus the port's own MoE fields
+(DeepSeek-V3's router, drop-free dispatch and one chip's share of the
+experts), whose defaults give the reference's behaviour.
 
 An ``ArchConfig`` fully determines a model. Heterogeneous stacks
 (gemma3's 5 local : 1 global, deepseek's first-k-dense, zamba2's shared
@@ -57,6 +59,24 @@ class ArchConfig:
     first_k_dense: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.001
+    # DeepSeek-V3's router and dispatch (the port's own fields; their
+    # defaults are the reference's softmax router and capacity dispatch):
+    # "sigmoid" scores choose top-k by score + a per-expert selection bias
+    # (a model leaf, stepped by ``router_bias_rate`` from each step's
+    # loads, not by gradient), weigh by the unbiased scores normalised and
+    # scaled by ``routed_scaling_factor``, and add the sequence-wise
+    # balance loss at ``router_aux_coef``
+    router_score: str = "softmax"  # softmax | sigmoid
+    routed_scaling_factor: float = 1.0
+    router_bias_rate: float = 0.0
+    # "capacity": pad each expert to the capacity and drop the overflow;
+    # "dropless": every token-choice routed to a held expert is computed
+    moe_dispatch: str = "capacity"  # capacity | dropless
+    # one chip's share of an expert-parallel layer: it holds experts
+    # [experts_offset, experts_offset + experts_held) of the router's
+    # num_experts (0 = all) and computes their part of the output only
+    experts_held: int = 0
+    experts_offset: int = 0
 
     # MLA (DeepSeek-V3)
     q_lora_rank: int = 0
@@ -119,6 +139,10 @@ class ArchConfig:
 
     def expert_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
+
+    def n_held(self) -> int:
+        """Experts this chip holds (all of them by default)."""
+        return self.experts_held or self.num_experts
 
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
@@ -196,5 +220,10 @@ def validate(cfg: ArchConfig) -> None:
         assert n_param_layers == cfg.num_layers, (cfg.name, n_param_layers, cfg.num_layers)
     if cfg.num_experts:
         assert cfg.num_experts_per_tok > 0
+        assert cfg.router_score in ("softmax", "sigmoid"), cfg.router_score
+        assert cfg.moe_dispatch in ("capacity", "dropless"), cfg.moe_dispatch
+        assert 0 <= cfg.experts_offset and cfg.experts_offset + cfg.n_held() <= cfg.num_experts
+        # a share of the experts is computed drop-free only
+        assert cfg.n_held() == cfg.num_experts or cfg.moe_dispatch == "dropless"
     if cfg.attention == "mla":
         assert cfg.kv_lora_rank > 0 and cfg.qk_rope_head_dim > 0

@@ -32,6 +32,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves
 from repro_torch.models.config import ArchConfig, encoder_segments, layer_segments, validate
@@ -42,6 +43,7 @@ from repro_torch.models.layers import (
     rms_norm,
     softmax_cross_entropy,
 )
+from repro_torch.models.moe import router_bias_step_
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.transformer import (
     decode_stack,
@@ -159,13 +161,24 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The mean next-token loss plus the routers' balance losses; its
+    metrics, and with drop-free MoE layers and the sigmoid router
+    ``expert_load`` (n_moe_layers, E) int64, each layer's choices of each
+    expert, which :func:`state_step_` reads."""
     tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
     x = _embed(params, cfg, tokens, batch)
     enc_out = _encode(params, cfg, batch) if cfg.is_encdec() else None
+    stats = [] if cfg.num_experts and cfg.moe_dispatch == "dropless" else None
     x, aux, _ = forward_stack(params["decoder"], layer_segments(cfg), cfg, x, _positions(tokens),
-                              shared_params=params.get("shared_attn"), enc_out=enc_out)
+                              shared_params=params.get("shared_attn"), enc_out=enc_out, moe_stats=stats)
     loss = softmax_cross_entropy(_logits(params, cfg, x), labels, mask)
     metrics = {"ce_loss": loss, "aux_loss": aux}
+    if stats:
+        loads = [load for load, _ in stats if load is not None]
+        if loads:
+            metrics["expert_load"] = torch.stack(loads)
+        if trace.enabled():
+            _count_rows(stats, cfg)
     if cfg.mtp_depth:
         # simplified multi-token prediction: predict t+2 from a projected
         # trunk state, at weight 0.3
@@ -178,6 +191,50 @@ def loss_fn(params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
     loss = loss + aux
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _count_rows(stats: list, cfg: ArchConfig) -> None:
+    """The tracer's device counters of the drop-free MoE layers (summed
+    over layers and steps): ``moe.rows`` the token-choices each held
+    expert computed, ``moe.rows_max`` the most one held expert computed in
+    one layer, ``moe.dropped`` the choices routed to a held expert and not
+    computed."""
+    H, lo = cfg.n_held(), cfg.experts_offset
+    ends = torch.stack([offs[:H] for _, offs in stats]).to(torch.int64)  # (layers, H)
+    rows = torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
+    trace.count_device("moe.rows", torch.sum(rows, dim=0))
+    trace.count_device("moe.rows_max", torch.amax(rows), reduce="max")
+    loads = [load for load, _ in stats if load is not None]
+    if len(loads) == len(stats):
+        routed = torch.sum(torch.stack(loads)[:, lo:lo + H])
+        trace.count_device("moe.dropped", routed - torch.sum(ends[:, -1]))
+
+
+def trained(path: tuple) -> bool:
+    """Whether the leaf at ``path`` is trained by the optimizer: every one
+    but the routers' selection bias, which is state that
+    :func:`state_step_` sets (it gets no moments and no decay)."""
+    return not path or str(path[-1]) != "router_bias"
+
+
+def state_step_(params, cfg: ArchConfig, metrics: dict) -> None:
+    """After an optimizer step, in place: each sigmoid router's selection
+    bias from the step's loads (``metrics["expert_load"]`` of
+    :func:`loss_fn`), at ``router_bias_rate``. Nothing without it."""
+    if not cfg.router_bias_rate or "expert_load" not in metrics:
+        return
+    loads = metrics["expert_load"]
+    with trace.span("moe.bias"):
+        i = 0
+        for (unit, reps), seg in zip(layer_segments(cfg), params["decoder"]):
+            at = [j for j, spec in enumerate(unit) if spec.kind == "moe"]
+            if not at:
+                continue
+            # forward_stack's order: repeat by repeat, unit position by position
+            block = loads[i:i + reps * len(at)].reshape(reps, len(at), -1)
+            for m, j in enumerate(at):
+                router_bias_step_(seg[j]["moe"]["router_bias"], block[:, m], cfg.router_bias_rate)
+            i += reps * len(at)
 
 
 # ----------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ArchConfig, LayerSpec
 from repro_torch.models.layers import apply_mlp, init_mlp, init_rms_norm, rms_norm
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.moe import init_moe, moe_layer
 from repro_torch.models.ssm import init_ssm, ssd_decode, ssd_full
 
 #: how a ``shared_attn`` position applies the shared block
@@ -73,23 +73,26 @@ def init_shared_attn(generator, cfg: ArchConfig, dtype, device="cpu") -> dict:
 
 
 def _ffn(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor):
-    """The second half of a layer: (x', router aux)."""
+    """The second half of a layer: (x', router aux, MoE stats); the aux
+    is None without a router, the stats None but for drop-free dispatch
+    (``moe.moe_layer``)."""
     h_in = rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec.kind == "moe":
-        h, aux = apply_moe(p["moe"], h_in, cfg)
-        return x + h, aux
-    return x + apply_mlp(p["mlp"], h_in), None
+        h, aux, stats = moe_layer(p["moe"], h_in, cfg)
+        return x + h, aux, stats
+    return x + apply_mlp(p["mlp"], h_in), None, None
 
 
 def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
                      enc_out: torch.Tensor | None = None):
-    """Returns (x', cache entry, aux); aux is None for a layer without a
-    router. A cross-attention layer attends to ``enc_out`` (the
-    encoder's output) and appends its (k, v) to the entry."""
+    """Returns (x', cache entry, aux, MoE stats); aux is None for a layer
+    without a router, the stats None but for drop-free dispatch. A
+    cross-attention layer attends to ``enc_out`` (the encoder's output)
+    and appends its (k, v) to the entry."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "ssm":
         h, cache = ssd_full(p["ssm"], h_in, cfg)
-        return x + h, cache, None
+        return x + h, cache, None, None
     if _is_mla(spec, cfg):
         h, cache = attn.mla_full(p["attn"], h_in, positions, cfg)
     else:
@@ -101,8 +104,8 @@ def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor,
         ck, cv = attn.cross_kv(p["cross"], enc_out, cfg)
         x = x + attn.cross_attend(p["cross"], rms_norm(x, p["ln_x"], cfg.norm_eps), ck, cv, cfg)
         cache = cache + (ck, cv)
-    x, aux = _ffn(p, spec, cfg, x)
-    return x, cache, aux
+    x, aux, stats = _ffn(p, spec, cfg, x)
+    return x, cache, aux, stats
 
 
 def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor, cache: tuple, pos,
@@ -129,7 +132,7 @@ def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tenso
     if spec.cross_attention:
         enc_k, enc_v = cache[2], cache[3]
         x = x + attn.cross_attend(p["cross"], rms_norm(x, p["ln_x"], cfg.norm_eps), enc_k, enc_v, cfg)
-    x, _ = _ffn(p, spec, cfg, x)
+    x, _, _ = _ffn(p, spec, cfg, x)
     return x, (c0, c1) + tuple(cache[2:])
 
 
@@ -166,15 +169,18 @@ def _position(spec: LayerSpec, p: Any, shared_params: Any) -> tuple[LayerSpec, A
 
 def _unit_full(unit, cfg, layer_params, shared_params, x, positions, enc_out):
     """One repeat of a unit: (x', caches, aux summed over its routers in
-    layer order, or None without a router)."""
-    caches, aux = [], None
+    layer order, or None without a router, the drop-free MoE layers'
+    stats in layer order)."""
+    caches, aux, stats = [], None, []
     for spec, p in zip(unit, layer_params):
         spec, p = _position(spec, p, shared_params)
-        x, cache, a = apply_layer_full(p, spec, cfg, x, positions, enc_out)
+        x, cache, a, st = apply_layer_full(p, spec, cfg, x, positions, enc_out)
         if a is not None:
             aux = a if aux is None else aux + a
+        if st is not None:
+            stats.append(st)
         caches.append(cache)
-    return x, tuple(caches), aux
+    return x, tuple(caches), aux, tuple(stats)
 
 
 def _stack_caches(per_rep: list) -> tuple:
@@ -193,13 +199,16 @@ def forward_stack(
     shared_params: dict | None = None,
     enc_out: torch.Tensor | None = None,
     collect_cache: bool = False,
+    moe_stats: list | None = None,
 ):
     """Full-sequence pass over all segments. Returns (x, aux_total,
     caches): ``aux_total`` is the routers' auxiliary loss summed over the
     layers in order (a float32 zero without a router); ``caches`` per
     segment a tuple over unit positions of cache entries stacked over
     repeats, or None entries when ``collect_cache`` is False.
-    Cross-attention layers attend to ``enc_out``."""
+    Cross-attention layers attend to ``enc_out``. Each drop-free MoE
+    layer's stats (load, group ends) are appended to ``moe_stats`` in
+    layer order, once a pass (remat's recompute appends nothing)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for (unit, reps), seg_params in zip(segments, params_segments):
@@ -208,12 +217,15 @@ def forward_stack(
         for r in range(reps):
             layer_params = [pp[r] for pp in per_pos]
             if cfg.remat and torch.is_grad_enabled():
-                x, cache, aux = checkpoint(_unit_full, unit, cfg, layer_params, shared_params, x, positions,
-                                           enc_out, use_reentrant=False)
+                x, cache, aux, stats = checkpoint(_unit_full, unit, cfg, layer_params, shared_params, x,
+                                                  positions, enc_out, use_reentrant=False)
             else:
-                x, cache, aux = _unit_full(unit, cfg, layer_params, shared_params, x, positions, enc_out)
+                x, cache, aux, stats = _unit_full(unit, cfg, layer_params, shared_params, x, positions,
+                                                  enc_out)
             if aux is not None:
                 aux_total = aux_total + aux
+            if moe_stats is not None:
+                moe_stats.extend(stats)
             seg_caches.append(cache)
         caches.append(_stack_caches(seg_caches) if collect_cache else tuple(None for _ in unit))
     return x, aux_total, caches

@@ -3,8 +3,12 @@
 
 The reference's ops in its order: moments and the update in float32,
 the step an int32 counter, bias corrections ``1 - b ** step`` in
-float32, weight decay on every leaf (norms and embedding included). A
-``state_dtype="bfloat16"`` rounds ``mu``/``nu`` on every write.
+float32, weight decay on every trained leaf (norms and embedding
+included). A ``state_dtype="bfloat16"`` rounds ``mu``/``nu`` on every
+write. A leaf that is state, not trained (``init_opt_state``'s
+``trained`` says which; the model's ``trained``: the routers' selection
+bias), has ``None`` for its moments: the step leaves it as it is (copied
+into ``out``), neither stepped nor decayed.
 
 :func:`apply_updates_` writes the step in place or into given trees;
 :func:`apply_updates` allocates fresh trees and writes through it. Leaves
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,12 +43,19 @@ def _sdt(cfg: AdamWConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.state_dtype]
 
 
-def init_opt_state(params: Any, cfg: AdamWConfig) -> dict:
+def init_opt_state(params: Any, cfg: AdamWConfig, trained=None) -> dict:
+    """Zero moments for every leaf, or with ``trained(path) -> bool`` for
+    the trained leaves only (``None`` in the others' place)."""
     dt = _sdt(cfg)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    def zeros(path, p):
+        if trained is not None and not trained(path):
+            return None
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
     return {
-        "mu": tree_map(zeros, params),
-        "nu": tree_map(zeros, params),
+        "mu": tree_map_with_path(zeros, params),
+        "nu": tree_map_with_path(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device),
     }
 
@@ -100,7 +111,9 @@ def apply_updates_(
     themselves: an update in place). Leaves on the card go to K5 in one
     launch (no temporaries); the others to :func:`_update` one at a time,
     so that only one leaf's temporaries live at once. Counts the leaves of
-    each route (``adamw_leaves``, sites ``kernel`` and ``plain``)."""
+    each route (``adamw_leaves``, sites ``kernel`` and ``plain``). A leaf
+    without moments (state, not trained) takes neither: it is copied into
+    ``out`` as it is."""
     out_p, out_state = (params, state) if out is None else out
     step = state["step"] + 1
     b1c, b2c = _corrections(step, cfg)
@@ -108,6 +121,10 @@ def apply_updates_(
     leaves: list = []
     tree_map(lambda *leaf: leaves.append(leaf), params, grads, state["mu"], state["nu"],
              out_p, out_state["mu"], out_state["nu"])
+    for p, _, mu, _, dst, _, _ in leaves:
+        if mu is None and dst is not p:
+            dst.copy_(p)
+    leaves = [leaf for leaf in leaves if leaf[2] is not None]
     card = [leaf for leaf in leaves if leaf[0].is_cuda]
     plain = [leaf for leaf in leaves if not leaf[0].is_cuda]
     if card:

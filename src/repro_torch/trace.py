@@ -24,8 +24,10 @@ every span on the device trace's own clock (a span that opened before the
 profiler started has no range). The range is a
 ``_RecordFunctionFast``: a host event, not a user annotation, so the
 profiler adds no interval of its own to the device's timeline for it.
-Counters are host integers keyed by name and site; none reads a device
-value. Everything stays in memory until :func:`collect`.
+Counters are host integers keyed by name and site (:func:`count`), or
+device tensors (:func:`count_device`: the rows each held expert
+computed), which accumulate on the card without a sync and are read once
+by :func:`collect`. Everything stays in memory until :func:`collect`.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["collect", "count", "disable", "enable", "span"]
+__all__ = ["collect", "count", "count_device", "disable", "enable", "enabled", "span"]
 
 
 class _Off:
@@ -73,6 +75,7 @@ class _State:
         self.spans: list[_Span] = []
         self.stack: list[_Span] = []
         self.counters: dict = defaultdict(int)
+        self.device: dict = {}  # (name, site) -> accumulated tensor
 
 
 _S = _State()
@@ -137,23 +140,47 @@ def span(name: str, *, round: int | None = None, worker: int | None = None, step
     return sp
 
 
+def enabled() -> bool:
+    """Whether the tracer is on: a caller computes a device counter's
+    value only then."""
+    return _S.on
+
+
 def count(name: str, n: int, site: str = "") -> None:
     """Add ``n`` to counter ``name`` at ``site`` while the tracer is on."""
     if _S.on:
         _S.counters[(name, site)] += n
 
 
+def count_device(name: str, value: torch.Tensor, site: str = "", reduce: str = "sum") -> None:
+    """Fold the device tensor ``value`` into counter ``name`` at ``site``
+    while the tracer is on, on the card (``reduce`` "sum" or "max",
+    elementwise): no host sync; :func:`collect` reads it."""
+    if not _S.on:
+        return
+    key = (name, site)
+    value = value.detach()
+    old = _S.device.get(key)
+    if old is None:
+        _S.device[key] = value.clone()
+    elif reduce == "max":
+        torch.maximum(old, value, out=old)
+    else:
+        old.add_(value)
+
+
 def collect() -> dict:
     """What was recorded since the last collect, then cleared.
 
     Synchronises the card once. Returns ``{"spans": [...], "counters":
-    {name: {site: n}}}``; the spans in the order they opened, each a dict
+    {name: {site: n}}}`` (a device counter's ``n`` is its tensor's
+    ``tolist()``); the spans in the order they opened, each a dict
     of ``name``, ``parent`` (index of the parent span or None),
     ``round``, ``worker``, ``step``, ``host_ms`` and ``device_ms`` (None
     for a span still open)."""
-    spans, counters = _S.spans, _S.counters
-    _S.spans, _S.counters = [], defaultdict(int)
-    if spans and _S.cuda:
+    spans, counters, device = _S.spans, _S.counters, _S.device
+    _S.spans, _S.counters, _S.device = [], defaultdict(int), {}
+    if (spans or device) and _S.cuda:
         torch.cuda.synchronize()
     index = {id(sp): i for i, sp in enumerate(spans)}
     out = []
@@ -169,4 +196,6 @@ def collect() -> dict:
     by_name: dict = defaultdict(dict)
     for (name, site), n in counters.items():
         by_name[name][site] = n
+    for (name, site), t in device.items():
+        by_name[name][site] = t.tolist()
     return {"spans": out, "counters": dict(by_name)}

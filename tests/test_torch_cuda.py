@@ -1087,3 +1087,120 @@ def test_cuda_family_server_matches_cpu(cuda_device, arch):
         assert m["adoptions"] == 1 and m["recompiles"] == 0 and m["dropped_requests"] == 0
         runs.append(([r.tokens.tolist() for r in res], [r.versions for r in res], m["decode_steps"]))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's block: sigmoid routing, drop-free grouped experts, the bias
+# ---------------------------------------------------------------------------
+
+
+def _tiny_dsv3(compute_dtype="bfloat16", remat=True, held=4):
+    from repro_torch.models.config import ArchConfig
+
+    return ArchConfig(name="tiny-dsv3", arch_type="moe", num_layers=3, d_model=128, num_heads=4,
+                      num_kv_heads=4, d_ff=256, moe_d_ff=64, vocab=500, attention="mla", q_lora_rank=0,
+                      kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+                      num_experts=16, num_experts_per_tok=4, num_shared_experts=2, first_k_dense=1, router_score="sigmoid",
+                      routed_scaling_factor=2.446, router_bias_rate=0.01, router_aux_coef=1e-3,
+                      moe_dispatch="dropless", experts_held=held, remat=remat, compute_dtype=compute_dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_experts_repeat_and_match_the_plain_path(cuda_device):
+    """The drop-free MoE layer in bf16 on the card (``torch._grouped_mm``
+    over the held experts, an empty group among them): forward and every
+    gradient the same bits on a second pass, the empty expert's gradients
+    exactly zero, and the output and gradients within bf16's rounding of
+    the float32 plain path on the CPU (the loop of products)."""
+    import dataclasses
+
+    from repro_torch.models import init_params, moe
+    from repro_torch.tree import tree_map
+
+    cfg = _tiny_dsv3()
+    lp = tree_map(lambda a: a[0], init_params(cfg, 0, device="cpu")["decoder"][1][0]["moe"])
+    lp["router_bias"][2] = -10.0  # held expert 2 gets no token
+    x = torch.randn((2, 256, 128), generator=torch.Generator().manual_seed(1))
+    cot = torch.randn((2, 256, 128), generator=torch.Generator().manual_seed(2))
+
+    def run(device, c):
+        leaves = tree_map(lambda a: a.detach().clone().to(device).requires_grad_(True), lp)
+        xx = x.to(device, c).requires_grad_(True)
+        out, aux, (load, offs) = moe.moe_layer(leaves, xx, cfg if c == torch.bfloat16 else
+                                               dataclasses.replace(cfg, compute_dtype="float32"))
+        ((out.float() * cot.to(device)).sum() + aux).backward()
+        grads = [xx.grad] + [leaves[k].grad for k in ("router", "gate", "up", "down")]
+        return [out.detach(), aux.detach(), offs] + grads
+
+    a, b = run(cuda_device, torch.bfloat16), run(cuda_device, torch.bfloat16)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    rows = torch.diff(a[2][:4].long(), prepend=a[2].new_zeros(1).long())
+    assert int(rows[2]) == 0 and int(rows.sum()) > 0
+    assert all(not bool(g[2].any()) for g in a[-3:])
+    want = run("cpu", torch.float32)
+    for got, w in zip([a[0]] + a[3:], [want[0]] + want[3:]):
+        got, w = got.float().cpu(), w.float()
+        assert float((got - w).abs().max()) <= 3e-2 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_step_repeats_bit_for_bit(cuda_device):
+    """A whole TMSN-SGD round of the sigmoid-routed MLA model with remat
+    on the card (forward, backward through the grouped products, K5 on
+    the trained leaves, the bias rule) twice: the same bits; K5 launches
+    once a worker step and the bias is stepped."""
+    from repro_torch.core.sgd_worker import lm_sgd_worker
+    from repro_torch.core.tmsn_sgd import TMSNSGDConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    runs = []
+    for _ in range(2):
+        worker = lm_sgd_worker(_tiny_dsv3(), AdamWConfig(lr=1e-2, state_dtype="bfloat16"),
+                               TMSNSGDConfig(local_steps=2, ema=0.8), batch_size=2, seq=64,
+                               device=cuda_device)
+        state = worker.init_batch(2, 0)
+        tops.reset_launches()
+        new, _, _ = worker.scan_round(state, torch.ones(2, dtype=torch.bool, device=cuda_device))
+        torch.cuda.synchronize()
+        assert tops.LAUNCHES["adamw_step"] == 2 * 2
+        runs.append(tree_leaves((new.params, new.opt, new.cert)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    bias = new.params["decoder"][1][0]["moe"]["router_bias"]
+    assert bool((bias != 0).any()) and new.opt["mu"]["decoder"][1][0]["moe"]["router_bias"] is None
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_one_launch_for_yis_leaves_and_the_bias_left_out(cuda_device):
+    """K5 steps Yi-9B's 12 leaves in one launch, as before the bias was
+    left out of AdamW; on the MoE tree it steps the trained leaves in one
+    launch and leaves the selection bias as it was."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, trained
+    from repro_torch.optim import AdamWConfig, apply_updates_, init_opt_state
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
+
+    import dataclasses
+
+    yi = dataclasses.replace(get_config("yi_9b"), num_layers=1, d_model=256, num_heads=4, num_kv_heads=2,
+                             d_ff=512, vocab=1000)
+    for cfg, n_trained in ((yi, 12), (_tiny_dsv3(), None)):
+        params = init_params(cfg, 0, cuda_device)
+        opt = init_opt_state(params, AdamWConfig(), trained=trained)
+        named = {".".join(map(str, p)): a for p, a in tree_leaves_with_path(params)}
+        want = sum(1 for k in named if not k.endswith("router_bias"))
+        assert n_trained is None or want == n_trained
+        bias = {k: a.clone() for k, a in named.items() if k.endswith("router_bias")}
+        tops.reset_launches()
+        trace.disable()
+        trace.collect()
+        trace.enable()
+        try:
+            apply_updates_(params, tree_map(torch.ones_like, params), opt, AdamWConfig(weight_decay=0.5))
+            counts = trace.collect()["counters"]
+        finally:
+            trace.disable()
+        assert tops.LAUNCHES["adamw_step"] == 1 and counts["adamw_leaves"] == {"kernel": want}
+        assert all(torch.equal(named[k], v) for k, v in bias.items())
+        assert len(tree_leaves(opt["mu"])) == want

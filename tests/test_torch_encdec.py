@@ -52,6 +52,23 @@ from repro_torch.models.config import ArchConfig, layer_segments  # noqa: E402
 from repro_torch.models.transformer import forward_stack  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
+
+#: the port's own ArchConfig fields (DeepSeek-V3's router, drop-free
+#: dispatch, one chip's share of the experts), absent from the reference's
+PORT_FIELDS = {"router_score", "routed_scaling_factor", "router_bias_rate", "moe_dispatch", "experts_held",
+               "experts_offset"}
+
+
+def config_fields(port, ref) -> tuple[dict, dict]:
+    """``(port, reference)`` field dicts of two ArchConfigs over the
+    reference's fields, after asserting that the port's own fields hold
+    the defaults that give the reference's behaviour."""
+    got, want = dataclasses.asdict(port), dataclasses.asdict(ref)
+    own = {f.name: f.default for f in dataclasses.fields(port) if f.name not in want}
+    assert set(own) == PORT_FIELDS and {k: got[k] for k in own} == own
+    return {k: got[k] for k in want}, want
+
+
 CPU = "cpu"
 MOD = dict(rtol=1e-5, atol=1e-5)
 ARCH_IDS = ["whisper_large_v3", "phi3_vision_4p2b"]
@@ -370,7 +387,8 @@ def test_registry_carries_both():
         for cfg, jcfg in ((tconfigs.get_config(alias), jconfigs().get_config(arch)),
                           (tconfigs.reduced(tconfigs.get_config(arch)),
                            jconfigs().reduced(jconfigs().get_config(arch)))):
-            assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+            got, want = config_fields(cfg, jcfg)
+            assert got == want
 
 
 # ---------------------------------------------------------------------------

@@ -732,7 +732,9 @@ def test_adamw_step_checks_its_inputs():
     with pytest.raises(ValueError, match="no plain version"):
         call(good)
     assert tops.LAUNCHES["adamw_step"] == 0
-    assert all(torch.equal(a, b) for a, b in zip(good[4:], before))
+    # the outputs are never written: the same bits (as int32: the empty
+    # buffers may hold NaN patterns, which equal nothing as floats)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(good[4:], before))
     tops.adamw_step([], b1c, b2c, lr, _ADAMW_CFG)
     with pytest.raises(TypeError):
         call(tuple(t.half() for t in good))

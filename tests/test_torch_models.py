@@ -43,6 +43,22 @@ from repro_torch.models.config import ArchConfig, encoder_segments, layer_segmen
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from test_worker_contract import TINY_ARCH  # noqa: E402
 
+
+#: the port's own ArchConfig fields (DeepSeek-V3's router, drop-free
+#: dispatch, one chip's share of the experts), absent from the reference's
+PORT_FIELDS = {"router_score", "routed_scaling_factor", "router_bias_rate", "moe_dispatch", "experts_held",
+               "experts_offset"}
+
+
+def config_fields(port, ref) -> tuple[dict, dict]:
+    """``(port, reference)`` field dicts of two ArchConfigs over the
+    reference's fields, after asserting that the port's own fields hold
+    the defaults that give the reference's behaviour."""
+    got, want = dataclasses.asdict(port), dataclasses.asdict(ref)
+    own = {f.name: f.default for f in dataclasses.fields(port) if f.name not in want}
+    assert set(own) == PORT_FIELDS and {k: got[k] for k in own} == own
+    return {k: got[k] for k in want}, want
+
 CPU = "cpu"
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)
@@ -117,12 +133,13 @@ class TestConfigs:
         assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
         assert set(tconfigs.PORTED_ARCH_IDS) == set(jconfigs.ARCH_IDS)
         for arch in tconfigs.PORTED_ARCH_IDS:
-            assert dataclasses.asdict(tconfigs.get_config(arch)) == dataclasses.asdict(
-                jconfigs.get_config(arch))
-            assert dataclasses.asdict(tconfigs.reduced(tconfigs.get_config(arch))) == dataclasses.asdict(
-                jconfigs.reduced(jconfigs.get_config(arch)))
-        assert dataclasses.asdict(tconfigs.get_config("Yi-9B".lower())) == dataclasses.asdict(
-            jconfigs.get_config("yi-9b"))
+            got, want = config_fields(tconfigs.get_config(arch), jconfigs.get_config(arch))
+            assert got == want
+            got, want = config_fields(tconfigs.reduced(tconfigs.get_config(arch)),
+                                      jconfigs.reduced(jconfigs.get_config(arch)))
+            assert got == want
+        got, want = config_fields(tconfigs.get_config("Yi-9B".lower()), jconfigs.get_config("yi-9b"))
+        assert got == want
         assert sorted(tconfigs.all_configs()) == sorted(tconfigs.PORTED_ARCH_IDS)
 
     def test_unknown_arch(self):
