@@ -40,6 +40,16 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              and at float32 its device and CUDA-event ms beside the bytes
              bound, the plain update's and torch._fused_adamw_'s (a
              yardstick; ``chip_smoke.py --k5`` runs the build and K5 alone);
+             K6 attention (forward and backward) against ``_sdpa`` in
+             float32 from the same bf16 inputs at K6_CASES (Yi-9B's heads
+             at 4096 with one and two sequences, ragged lengths, a window,
+             positions not the index), block by block to K6_TOL, with the bf16
+             ``_sdpa``'s errors beside it, bit for bit on a repeat, and at
+             ``sgd_long``'s shape its device ms by kernel (held within
+             K6_DEVICE_VS_EVENTS of its CUDA-event ms) against the causal
+             FLOP bound, with the plain ``_sdpa``'s and
+             ``scaled_dot_product_attention``'s ms (a yardstick;
+             ``chip_smoke.py --k6`` runs the build and K6 alone);
   small_ref  a small run of the whole slice on the card (kernels) against
              the same run on the CPU (plain versions);
   main       the paper's configuration (configs/sparrow.py: n=200 000,
@@ -120,12 +130,17 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              (6 x matmul params x tokens), ms of a forward+backward and of
              an AdamW step, the device idle share and top kernels over 2
              profiled rounds, peak memory; the run's K5 launches, one
-             a worker step (held; K5's ``launches`` in the kernels line);
+             a worker step, and K6's, two forwards (remat) and one backward
+             a layer a worker step (held; K5's ``launches`` and K6's
+             ``launches_fwd`` and ``launches_bwd`` in the kernels line);
              then the best model serves: a
              2 x 128 prefill and 16 cached decode steps at scalar and at
              per-row pos (bit for bit alike), each position's logits within
-             LM_BF16_TOL of the full forward. No TPU kernel lies on this
-             path; K5 is the port's own;
+             LM_BF16_TOL of the full forward through ``_sdpa``, the decode's
+             own attention steps; the full forward through K6, which the
+             prefill runs, no farther from the float32 forward than the
+             one through ``_sdpa``. No TPU kernel lies on this
+             path; K5 and K6 are the port's own;
   serve_small_ref  the continuous-batching server (launch/serving.py) on
              reduced(yi_9b) in float32, built on the CPU from a seed: a run
              with continuous admission (10 requests over 4 slots) and one
@@ -240,8 +255,11 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              (meta device): counts by status, 0 errors, and the records
              whose arguments do not fit one card's 80 GB. The launch
              phases launch none of K1-K4; K5 launches once an AdamW step
-             in train and sharded_sgd (launches_train, launches_ckpt,
-             launches_sharded_sgd, launches_dryrun in the kernels line).
+             in train and sharded_sgd, K6 once a forward and once a
+             backward of each bf16 attention layer of head 128
+             (launches_train, launches_ckpt, launches_sharded_sgd,
+             launches_dryrun in the kernels line; K6's as
+             launches_<phase>_fwd and launches_<phase>_bwd).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -253,6 +271,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -671,9 +690,9 @@ def lm_small_ref_phase() -> None:
         f"seconds={time.perf_counter() - t0:.3f}")
 
 
-def lm_sgd_phase() -> int:
+def lm_sgd_phase() -> dict:
     """TMSN-SGD at Yi-9B's full width on the card (see the module doc).
-    Returns the K5 launches of the main run."""
+    Returns the K5 and K6 launches of the main run."""
     import gc
 
     import numpy as np
@@ -684,6 +703,7 @@ def lm_sgd_phase() -> int:
     from repro_torch.core import TMSNEngine, TMSNSGDConfig, lm_sgd_worker, oracle_run
     from repro_torch.data.tokens import stream_tokens, synthetic_token_batch
     from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
     from repro_torch.models import decode_step, init_cache, init_params, loss_fn, param_count, prefill
     from repro_torch.models.config import layer_segments
     from repro_torch.models.model import _embed, _logits, _positions
@@ -714,11 +734,16 @@ def lm_sgd_phase() -> int:
     res = TMSNEngine(clock_a, engine_config(LM_W, LM_ROUNDS, False), device="cuda").run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    # every worker steps in every round, and each step is one K5 launch
-    adamw_launches = ops.LAUNCHES["adamw_step"]
-    if adamw_launches != LM_W * LM_K * LM_ROUNDS:
-        raise AssertionError(f"lm_sgd: {adamw_launches} K5 launches, not one a step "
-                             f"({LM_W} x {LM_K} x {LM_ROUNDS})")
+    # every worker steps in every round: each step is one K5 launch, and
+    # each attention layer launches K6's forward twice (the forward and
+    # remat's recompute) and its backward once
+    run_launches = {k: ops.LAUNCHES[k] for k in ("adamw_step", "attention_fwd", "attention_bwd")}
+    steps = LM_W * LM_K * LM_ROUNDS
+    want = {"adamw_step": steps, "attention_fwd": 2 * cfg.num_layers * steps,
+            "attention_bwd": cfg.num_layers * steps}
+    if not cfg.remat or run_launches != want:
+        raise AssertionError(f"lm_sgd: launches {run_launches}, not {want} ({LM_W} workers x {LM_K} steps x "
+                             f"{LM_ROUNDS} rounds, {cfg.num_layers} layers, remat {cfg.remat})")
     peak_run = torch.cuda.max_memory_allocated()
     rows_a, sums_a = history_rows(res, LM_W, LM_K), clock_a.sums_np()
     periods = clock_a.periods_ms()
@@ -734,7 +759,7 @@ def lm_sgd_phase() -> int:
         f"bf16_peak_share={flop_per_round / (round_ms / 1e3) / BF16_OPS_PER_S:.4f} "
         f"sent={res.messages_sent} accepted={res.messages_accepted} history_changes={fires} "
         f"payload_bytes={payload} certificates={rows_a.tolist()} max_memory_allocated={peak_run} "
-        f"adamw_step_launches={adamw_launches}")
+        f"launches={json.dumps(run_launches)}")
     if res.rounds != LM_ROUNDS or not np.all(np.isfinite(rows_a)) or np.any(np.diff(rows_a, axis=0) > 0):
         raise AssertionError(f"lm_sgd: certificates not finite and monotone: {rows_a.tolist()}")
     if fires < 1 or res.messages_sent < 1:
@@ -846,9 +871,30 @@ def lm_sgd_phase() -> int:
         dec, gen, decode_ms = decode(False)
         dec_row, _, decode_row_ms = decode(True, feed=gen)
         full_tokens = torch.cat([prompt, gen], 1)
-        x = _embed(served, cfg, full_tokens)
-        x, _, _ = forward_stack(served["decoder"], layer_segments(cfg), cfg, x, _positions(full_tokens))
-        full = _logits(served, cfg, x)[:, LM_PROMPT:]
+
+        def full_logits(c=cfg):
+            x = _embed(served, c, full_tokens)
+            x, _, _ = forward_stack(served["decoder"], layer_segments(c), c, x, _positions(full_tokens))
+            return _logits(served, c, x)[:, LM_PROMPT:]
+
+        full_k6 = full_logits()  # gqa_full runs K6 here (bf16, head 128)
+        # The decode bound is of the cache's bookkeeping, so its reference
+        # takes the decode's attention steps (_sdpa, the scores rounded to
+        # bf16). Two roundings of attention differ by more than it allows,
+        # and gqa_full routes bf16 CUDA tensors at head 128 to K6 with no
+        # option, so this one forward sets the route aside.
+        k6_takes = attn._k6_takes
+        attn._k6_takes = lambda *a: False
+        try:
+            full = full_logits()
+        finally:
+            attn._k6_takes = k6_takes
+        # The prefill's K6 forward is held to the float32 forward (float32
+        # inputs take _sdpa by their dtype): no farther from it than the
+        # bf16 _sdpa forward, by the largest and by the mean distance.
+        full_f32 = full_logits(dataclasses.replace(cfg, compute_dtype="float32"))
+    dist = {name: ((x.float() - full_f32).abs().max().item(), (x.float() - full_f32).abs().mean().item())
+            for name, x in (("k6", full_k6), ("sdpa", full))}
     err = (dec - full).abs()
     bound_ok = bool((err <= LM_BF16_TOL * (1 + full.abs())).all())
     agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
@@ -856,13 +902,19 @@ def lm_sgd_phase() -> int:
         f"decode_ms_per_token={decode_ms:.3f} decode_ms_per_token_per_row_pos={decode_row_ms:.3f} "
         f"max_abs_err_vs_full={float(err.max()):.4g} max_abs_logit={float(full.abs().max()):.4g} "
         f"tolerance={LM_BF16_TOL}*(1+|full|) argmax_agreement={agree:.4f} "
+        f"k6_full_max_abs_err_vs_full={float((full_k6 - full).abs().max()):.4g} "
+        f"k6_full_argmax_agreement={float((full_k6.argmax(-1) == full.argmax(-1)).float().mean()):.4f} "
+        f"vs_float32_forward_max_mean={json.dumps(dist)} "
         f"per_row_pos==scalar={torch.equal(dec, dec_row)} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
     if not torch.equal(dec, dec_row):
         raise AssertionError("lm_sgd: per-row pos decode differs from scalar pos decode")
     if not (bound_ok and torch.isfinite(dec).all()):
         raise AssertionError(f"lm_sgd: cached decode differs from the full forward by {float(err.max()):.4g}")
+    if not all(a <= b for a, b in zip(dist["k6"], dist["sdpa"])):
+        raise AssertionError(f"lm_sgd: K6's forward is farther from the float32 forward than _sdpa's: {dist}")
     log(f"phase lm_sgd ok seconds={time.perf_counter() - t_phase:.3f}")
+    return run_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2099,7 +2151,7 @@ def sharded_sgd_phase() -> dict:
     """TMSN-SGD at lm_sgd's shape on SHARDED_SGD_RANKS gloo ranks sharing
     the card (their collectives staged through host memory) against the
     single-device engine: certificates, history and every final model's
-    per-leaf checksums bit for bit. Returns the ranks' K1-K4 launches."""
+    per-leaf checksums bit for bit. Returns the ranks' kernel launches."""
     import gc
     import tempfile
 
@@ -2309,6 +2361,250 @@ def k5_check(time_ms, device_ms) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# K6 attention (in the kernels phase; ``chip_smoke.py --k6`` runs it alone)
+# ---------------------------------------------------------------------------
+
+#: K6's checks: (b, s, H, K, window, positions). Yi-9B's heads at its
+#: context with one sequence, ragged lengths, a window, positions that are
+#: not the index: shifted by a different offset in each row, and each
+#: repeated twice (so a query sees the key after it); last, the main
+#: path's own shape (``yi9b_l1.sgd_long``: two sequences of 4096)
+K6_CASES = (
+    (1, 4096, 32, 4, None, "index"),
+    (2, 1, 8, 2, None, "index"),
+    (2, 100, 8, 2, None, "index"),
+    (1, 129, 8, 2, None, "index"),
+    (2, 1000, 8, 2, None, "index"),
+    (2, 1000, 8, 2, 100, "index"),
+    (2, 300, 8, 2, None, "offset"),
+    (2, 300, 8, 2, 64, "repeated"),
+    (2, 4096, 32, 4, None, "index"),
+)
+#: K6 timed at ``yi9b_l1.sgd_long``'s attention: (b, s, H, K), head 128
+K6_TIMED = (2, 4096, 32, 4)
+#: largest block error (k6_block_errors) K6 may read against the float32
+#: ``_sdpa``, for O, dq, dk and dv. K6 rounds O, dQ, dK and dV to bf16 (half
+#: a bf16 step, 2^-9 of the value), and P and dS to bf16 where they enter
+#: the tensor cores; the float32 reference rounds nothing. The bf16
+#: ``_sdpa`` the port ran before rounds the scores before the scale as well
+#: and reads above this bound (PERF.md §6)
+K6_TOL = 1e-2
+#: positions a block of k6_block_errors holds: rows this near each other
+#: have values of one size (a query's O averages about as many values as
+#: its neighbours'), so a row lost or garbled anywhere reads as large as
+#: the block's largest value
+K6_BLOCK = 64
+#: a block whose reference is below this everywhere is held against it
+#: instead: the inputs are unit normals, so such blocks are the gradients
+#: the reference has at exactly 0 (a sequence of one position: softmax's
+#: backward cancels), where K6's D = rowsum(dO * O) and dP = dO V^T are one
+#: sum in two orders and cancel to ~1e-6, not to 0
+K6_FLOOR = 1e-3
+#: K6's device ms (the profiler's records) may differ from its CUDA-event
+#: ms by this share at most: its kernels run back to back, so only the
+#: launch gaps of a millisecond-long call lie between the two; more means
+#: the profiler lost or mixed records, and the device reading is refused
+K6_DEVICE_VS_EVENTS = 0.1
+
+
+def k6_positions(kind: str, b: int, s: int, dev):
+    import torch
+
+    ar = torch.arange(s, dtype=torch.int32, device=dev)
+    if kind == "index":
+        return ar.expand(b, s)  # as models.model._positions makes them
+    if kind == "offset":
+        return ar + 37 + 11 * torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    return (ar // 2).expand(b, s).contiguous()
+
+
+def k6_inputs(b, s, H, K, dev, seed=SEED, hd=128):
+    """q, k, v and dO: unit normals rounded to bf16, drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            for shape in ((b, s, H, hd), (b, s, K, hd), (b, s, K, hd), (b, s, H, hd))]
+
+
+def k6_run(fn, q, k, v, do, dtype):
+    """fn(q, k, v) -> (b, s, H, hd) and its gradients, on copies of q, k, v
+    in ``dtype``: [o, dq, dk, dv]."""
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+    o = fn(*leaves)
+    o.backward(do.to(o.dtype))
+    return [o.detach()] + [t.grad for t in leaves]
+
+
+def k6_plain(pos, window):
+    """models.attention._sdpa as gqa_full calls it, on (b, s, H, hd) q."""
+    from repro_torch.models.attention import _causal_window_mask, _sdpa
+
+    mask = _causal_window_mask(pos, pos, window)
+
+    def fn(q, k, v):
+        b, s, H, hd = q.shape
+        K = k.shape[2]
+        return _sdpa(q.reshape(b, s, K, H // K, hd), k, v, mask, hd ** -0.5).reshape(q.shape)
+
+    return fn
+
+
+def k6_kernel(pos, window):
+    """K6 through its autograd node, as gqa_full calls it."""
+    from repro_torch.models.attention import _K6
+
+    return lambda q, k, v: _K6.apply(q, k, v, pos, window, q.shape[-1] ** -0.5)
+
+
+def k6_block_errors(got, want) -> list:
+    """For o, dq, dk, dv: the largest, over blocks of K6_BLOCK positions at
+    one head of one sequence, of max |got - want| over max(max |want|,
+    K6_FLOOR) in the block. Not one row alone: a query's dq cancels
+    wherever its few keys' dP happen to agree, and there any rounding of O
+    (whose D it subtracts) is large next to the row but not next to its
+    neighbours. Not the whole tensor: late rows of a long sequence are
+    small (an average over thousands of values), and a tolerance of the
+    largest magnitude would let them be lost."""
+    out = []
+    for a, w in zip(got, want):
+        err = 0.0
+        for ab, wb in zip(a.float().split(K6_BLOCK, 1), w.float().split(K6_BLOCK, 1)):
+            gap = (ab - wb).abs().amax(dim=(1, 3))
+            err = max(err, float((gap / wb.abs().amax(dim=(1, 3)).clamp_min(K6_FLOOR)).max()))
+        out.append(err)
+    return out
+
+
+def k6_check(time_ms) -> dict:
+    """K6 against ``_sdpa`` computed in float32 from the same bf16 inputs,
+    at every case of K6_CASES: forward and dq, dk, dv by block error
+    (k6_block_errors, held to K6_TOL), and the bf16 ``_sdpa``'s own errors
+    beside it; the forward and the backward repeat bit for bit. At
+    K6_TIMED: device ms (the sum over K6's kernels of the mean of the
+    profiler's records of each, with their count), CUDA-event ms (the two
+    held within K6_DEVICE_VS_EVENTS of each other), the bound at
+    BF16_OPS_PER_S on causal FLOPs (forward 4 b H hd s(s+1)/2, backward 2.5
+    times it), the plain ``_sdpa``'s ms and
+    ``scaled_dot_product_attention``'s (a yardstick only: the port never
+    calls it). Returns the kernels line's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _K6
+
+    dev = torch.device("cuda")
+    scale = 128 ** -0.5
+    rec = {"name": "attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/attention.cu",
+           "replaces": "none (the reference's attention is plain jnp, fused by XLA)", "launches_fwd": None,
+           "launches_bwd": None, "tolerance": K6_TOL, "max_block_err": {}, "plain_bf16_block_err": {}}
+    worst, worst_plain = [0.0] * 4, [0.0] * 4
+    for b, s, H, K, window, kind in K6_CASES:
+        pos = k6_positions(kind, b, s, dev)
+        q, k, v, do = k6_inputs(b, s, H, K, dev)
+        want = k6_run(k6_plain(pos, window), q, k, v, do, torch.float32)
+        perr = k6_block_errors(k6_run(k6_plain(pos, window), q, k, v, do, torch.bfloat16), want)
+        runs = []
+        for _ in range(2):
+            ops.reset_launches()
+            runs.append(k6_run(k6_kernel(pos, window), q, k, v, do, torch.bfloat16))
+            torch.cuda.synchronize()
+            if (ops.LAUNCHES["attention_fwd"], ops.LAUNCHES["attention_bwd"]) != (1, 1):
+                raise AssertionError(f"K6 {b, s, H, K, window, kind}: launches {ops.LAUNCHES}")
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        err = k6_block_errors(runs[0], want)
+        worst = [max(x, y) for x, y in zip(worst, err)]
+        worst_plain = [max(x, y) for x, y in zip(worst_plain, perr)]
+        log(f"phase kernels K6 attention b={b} s={s} H={H} K={K} window={window} positions={kind} "
+            f"repeat_bitwise={same} block_err_o_dq_dk_dv={['%.3e' % e for e in err]} "
+            f"plain_bf16_block_err={['%.3e' % e for e in perr]} tolerance={K6_TOL}")
+        if not same:
+            raise AssertionError(f"K6 {b, s, H, K, window, kind}: a repeat gave other bits")
+        if not all(e <= K6_TOL for e in err):
+            raise AssertionError(f"K6 {b, s, H, K, window, kind}: block err {err} above {K6_TOL}")
+        del q, k, v, do, want, runs
+        torch.cuda.empty_cache()
+    rec["max_block_err"] = dict(zip(("o", "dq", "dk", "dv"), worst))
+    rec["plain_bf16_block_err"] = dict(zip(("o", "dq", "dk", "dv"), worst_plain))
+
+    b, s, H, K = K6_TIMED
+    pos = k6_positions("index", b, s, dev)
+    q, k, v, do = k6_inputs(b, s, H, K, dev)
+    o, lse, bounds = ops.attention_fwd(q, k, v, pos, None, scale)
+
+    def fwd():
+        ops.attention_fwd(q, k, v, pos, None, scale)
+
+    def bwd():
+        ops.attention_bwd(q, k, v, pos, o, lse, bounds, do, None, scale)
+
+    def k6_device_ms(fn, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per = {}  # kernel -> [records, device ms a record]
+        for e in prof.key_averages():
+            m = re.search(r"attention_\w+_kernel", e.key)
+            if m and e.count:
+                per[m.group(0)] = [e.count, e.self_device_time_total / e.count / 1e3]
+        # each kernel runs once a call: the sum of their means stands when
+        # the profiler drops records, as it does late in the whole smoke
+        return (sum(ms for _, ms in per.values()) if per else None), per
+
+    flops = 4 * b * H * 128 * s * (s + 1) / 2
+    bound_fwd, bound_bwd = flops / BF16_OPS_PER_S * 1e3, 2.5 * flops / BF16_OPS_PER_S * 1e3
+    fwd_dev, fwd_recs = k6_device_ms(fwd)
+    bwd_dev, bwd_recs = k6_device_ms(bwd)
+    fwd_ms = time_ms(fwd, reps=5, samples=9)
+    bwd_ms = time_ms(bwd, reps=5, samples=9)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd_k6():
+        _K6.apply(*leaves, pos, None, scale).backward(do)
+
+    fb_ms = time_ms(fwd_bwd_k6, reps=3, samples=7)
+    plain_fn = k6_plain(pos, None)
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: plain_fn(q, k, v), reps=2, samples=5)
+
+    def fwd_bwd_plain():
+        plain_fn(*leaves).backward(do)
+
+    plain_fb_ms = time_ms(fwd_bwd_plain, reps=1, samples=5)
+    torch.cuda.empty_cache()
+    G = H // K
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_(True) for t in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(lambda: sdpa(lq, lk, lv, is_causal=True, scale=scale), reps=5, samples=9)
+    do_t = do.transpose(1, 2)
+    lib_fb_ms = time_ms(lambda: sdpa(lq, lk, lv, is_causal=True, scale=scale).backward(do_t), reps=3, samples=7)
+    rec.update(shape={"b": b, "s": s, "H": H, "K": K, "hd": 128}, fwd_device_ms=fwd_dev, fwd_device_records=fwd_recs,
+               bwd_device_ms=bwd_dev, bwd_device_records=bwd_recs, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               fwd_bwd_ms=fb_ms, bound_fwd_ms=bound_fwd, bound_bwd_ms=bound_bwd, bound_by="operations",
+               fwd_share_of_bound=bound_fwd / fwd_dev if fwd_dev else None,
+               bwd_share_of_bound=bound_bwd / bwd_dev if bwd_dev else None,
+               plain_fwd_ms=plain_fwd_ms, plain_fwd_bwd_ms=plain_fb_ms, library_fwd_ms=lib_fwd_ms,
+               library_fwd_bwd_ms=lib_fb_ms,
+               device_over_events={"fwd": fwd_dev / fwd_ms if fwd_dev else None,
+                                   "bwd": bwd_dev / bwd_ms if bwd_dev else None})
+    log("phase kernels K6 attention timed " + json.dumps({k_: rec[k_] for k_ in rec if k_ not in ("name", "route")}))
+    for part, ratio in rec["device_over_events"].items():
+        if ratio is None or abs(ratio - 1) > K6_DEVICE_VS_EVENTS:
+            raise AssertionError(f"K6 {part}: device ms over events ms {ratio}, not within "
+                                 f"{K6_DEVICE_VS_EVENTS:.0%} of 1")
+    del q, k, v, do, o, lse, bounds, leaves, lq, lk, lv
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2338,7 +2634,7 @@ def main() -> int:
     build.load_library()
     log(f"phase build ok seconds={time.perf_counter() - t0:.2f} nvcc_seconds={compile_s:.2f} lib={path.name}")
     for line in (path.parent / build.PTXAS_LOG).read_text().splitlines():
-        if line.startswith("==") or "Used" in line or "spill" in line:
+        if line.startswith("==") or "Used" in line or "spill" in line or "entry function" in line:
             log(f"phase build ptxas {line.strip()}")
 
     # --------------------------------------------------------------- kernels
@@ -2395,6 +2691,9 @@ def main() -> int:
     records = {}
     if sys.argv[1:2] == ["--k5"]:  # K5 alone: its checks and times, the kernels line its record
         log(json.dumps({"kernels": [k5_check(time_ms, device_ms)]}))
+        return 0
+    if sys.argv[1:2] == ["--k6"]:  # K6 alone: its checks and times, the kernels line its record
+        log(json.dumps({"kernels": [k6_check(time_ms)]}))
         return 0
 
     # the launch floor: device time of the smallest kernel PyTorch launches
@@ -2731,6 +3030,7 @@ def main() -> int:
                 f"max_abs_err={err:.3g} w_max_rel_err={w_rel:.3g}")
         del xb, y, ml, ms_, got, again, plain
     records["adamw_step"] = k5_check(time_ms, device_ms)
+    records["attention"] = k6_check(time_ms)
     log("phase kernels ok")
 
     # ------------------------------------------------------------- small_ref
@@ -3382,19 +3682,27 @@ def main() -> int:
     if not (bloss < 1.0 and berr < minority):
         raise AssertionError(f"baselines: bsp test loss {bloss}, error {berr}")
 
-    def note_launches(name: str, ranks: dict) -> None:
-        """K1-K5 launches of the phase just run, in this process and its ranks."""
+    def note_launches(name: str, launches: dict) -> None:
+        """K1-K6 launches of the phase (or phases) just run, as plain ints:
+        ``launches_<name>`` in each record, K6's forward and backward as
+        ``launches_<name>_fwd`` and ``launches_<name>_bwd``."""
         for k, rec in records.items():
-            rec[f"launches_{name}"] = ops.LAUNCHES[k] + ranks.get(k, 0)
-        log(f"phase {name} launches={json.dumps({k: rec[f'launches_{name}'] for k, rec in records.items()})}")
+            if k == "attention":
+                rec[f"launches_{name}_fwd"] = launches["attention_fwd"]
+                rec[f"launches_{name}_bwd"] = launches["attention_bwd"]
+            else:
+                rec[f"launches_{name}"] = launches[k]
+        log(f"phase {name} launches={json.dumps(launches)}")
 
     # ---------------------------------------------------------- lm_small_ref
     ops.reset_launches()
     lm_small_ref_phase()
-    note_launches("lm_small_ref", {})
+    note_launches("lm_small_ref", dict(ops.LAUNCHES))
 
     # ---------------------------------------------------------------- lm_sgd
-    records["adamw_step"]["launches"] = lm_sgd_phase()
+    lm_run = lm_sgd_phase()
+    records["adamw_step"]["launches"] = lm_run["adamw_step"]
+    records["attention"].update(launches_fwd=lm_run["attention_fwd"], launches_bwd=lm_run["attention_bwd"])
 
     # ------------------------------------------------------- serve_small_ref
     ops.reset_launches()
@@ -3403,10 +3711,7 @@ def main() -> int:
     serve_phase()
     # ------------------------------------------------------------ serve_live
     serve_live_phase()
-    serve_launches = dict(ops.LAUNCHES)
-    log(f"phase serving launches={json.dumps(serve_launches)}")
-    for k, rec in records.items():
-        rec["launches_serve"] = serve_launches[k]
+    note_launches("serve", dict(ops.LAUNCHES))
 
     # ------------------------------------------------------ the families
     ops.reset_launches()
@@ -3414,36 +3719,31 @@ def main() -> int:
     serve_mamba2_phase()
     serve_deepseek_phase()
     families_full_phase()
-    family_launches = dict(ops.LAUNCHES)
-    log(f"phase families launches={json.dumps(family_launches)}")
-    for k, rec in records.items():
-        rec["launches_families"] = family_launches[k]
+    note_launches("families", dict(ops.LAUNCHES))
 
     # ------------------------------------------------ the enc-dec and VLM families
     ops.reset_launches()
     encdec_small_ref_phase()
     serve_whisper_phase()
     serve_phi3v_phase()
-    encdec_launches = dict(ops.LAUNCHES)
-    log(f"phase encdec launches={json.dumps(encdec_launches)}")
-    for k, rec in records.items():
-        rec["launches_encdec"] = encdec_launches[k]
+    note_launches("encdec", dict(ops.LAUNCHES))
 
     # ------------------------------------------------------- the launch tooling
     ops.reset_launches()
     trained = train_phase()
-    note_launches("train", {})
+    note_launches("train", dict(ops.LAUNCHES))
     ops.reset_launches()
     ckpt_phase(trained)
     del trained
-    note_launches("ckpt", {})
+    note_launches("ckpt", dict(ops.LAUNCHES))
     ops.reset_launches()
-    note_launches("sharded_sgd", sharded_sgd_phase())
+    ranks = sharded_sgd_phase()
+    note_launches("sharded_sgd", {k: n + ranks.get(k, 0) for k, n in ops.LAUNCHES.items()})
     ops.reset_launches()
     dryrun_phase()
-    note_launches("dryrun", {})
+    note_launches("dryrun", dict(ops.LAUNCHES))
 
-    log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update", "adamw_step")]}))
+    log(json.dumps({"kernels": [records[k] for k in (*ENGINE_KERNELS, "weight_update", "adamw_step", "attention")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

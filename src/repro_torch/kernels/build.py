@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("edge_scan.cu", "round_step.cu", "queue_ingest.cu", "weight_update.cu", "adamw_step.cu")
+SOURCES = ("edge_scan.cu", "round_step.cu", "queue_ingest.cu", "weight_update.cu", "adamw_step.cu", "attention.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -46,6 +46,8 @@ SIGNATURES = {
     "queue_ingest_launch": [_P] * 12 + [_I] * 5 + [_P],
     "weight_update_launch": [_P] * 8 + [_I] * 4 + [_P],
     "adamw_step_launch": [_P] + [_I] * 3 + [_P] * 3 + [_F] * 7 + [_P],
+    "attention_fwd_launch": [_P] * 2 + [_I] * 7 + [_F] + [_P],
+    "attention_bwd_launch": [_P] * 2 + [_I] * 7 + [_F] + [_P],
 }
 
 

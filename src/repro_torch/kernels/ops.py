@@ -1,16 +1,17 @@
 """Wrappers of the hand-written CUDA kernels (K1 ``edge_scan``, K2
 ``round_deliver``, K3 ``queue_ingest``, K4 ``weight_update``, K5
-``adamw_step``), and ``edge_scan_sharded``, K1 over one rank's workers
-of a mesh.
+``adamw_step``, K6 ``attention_fwd``/``attention_bwd``), and
+``edge_scan_sharded``, K1 over one rank's workers of a mesh.
 
 Counterpart of ``src/repro/kernels/ops.py``. Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``
 (K1 also keeps scratch per device and stream, reused across calls) and
 then:
 
-  * on CPU tensors calls the plain version in :mod:`.ref` (K5 has none
-    here and raises: ``optim.adamw.apply_updates_`` sends CPU leaves to
-    its plain update, ``_update``);
+  * on CPU tensors calls the plain version in :mod:`.ref` (K5 and K6
+    have none here and raise: ``optim.adamw.apply_updates_`` sends CPU
+    leaves to its plain update, ``_update``, and ``models.attention``
+    sends what K6 does not take to ``_sdpa``);
   * on CUDA tensors launches its kernel on the current stream (building
     the library at first use) and raises if the launch is refused, and
     counts the launch in :data:`LAUNCHES`;
@@ -31,7 +32,8 @@ from repro_torch.kernels import ref
 
 #: launches per kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0, "adamw_step": 0}
+LAUNCHES = {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0, "adamw_step": 0,
+            "attention_fwd": 0, "attention_bwd": 0}
 
 #: K1 plan: aim for this many 256-thread blocks per SM ...
 EDGE_SCAN_BLOCKS_PER_SM = 2
@@ -51,6 +53,10 @@ WEIGHT_UPDATE_TILE_N = 128
 ADAMW_MAX_LEAVES = 48
 #: K5's parameter/grad and state dtypes (all four pairs are compiled)
 _ADAMW_DTYPES = (torch.float32, torch.bfloat16)
+#: K6's head widths (qk, v): the instances the library holds
+ATTENTION_HEAD_DIMS = ((128, 128),)
+#: positions one entry of K6's tile bounds covers (``kQuantum`` in ``attention.cu``)
+ATTENTION_BOUNDS_ROWS = 32
 #: shared memory one block may use on an H100 (232 448 B, opted in above 48 KB)
 _MAX_BLOCK_SMEM = 232_448
 
@@ -462,11 +468,135 @@ def adamw_step(leaves: list, b1c: torch.Tensor, b2c: torch.Tensor, lr: float | t
             LAUNCHES["adamw_step"] += 1
 
 
+def attention_bounds_shape(b: int, s: int) -> tuple[int, int, int]:
+    """K6's tile bounds for ``b`` rows of ``s`` positions: ``(b, tiles,
+    2)`` int32, the smallest and largest position of each run of
+    :data:`ATTENTION_BOUNDS_ROWS` positions (the last run may be shorter).
+    The kernels skip a tile only where these show every pair masked."""
+    return (b, -(-s // ATTENTION_BOUNDS_ROWS), 2)
+
+
+def _attention_check(name: str, q, k, v, positions, window, more=lambda *dims: ()) -> tuple[int, ...]:
+    """Raise on anything K6 does not take: q (b, s, H, d_qk), k (b, s, K,
+    d_qk), v (b, s, K, d_v), bf16, the head widths one of
+    :data:`ATTENTION_HEAD_DIMS`; positions (b, s) int32 with a contiguous
+    sequence dimension (a batch stride of 0 is fine); window None or
+    positive; every tensor on one CUDA device. ``more(b, s, H, K, d_qk,
+    d_v)`` gives further ``(label, tensor, dtype, shape)`` to check.
+    Returns ``(b, s, H, K, d_qk, d_v)``."""
+    for label, t in [("q", q), ("k", k), ("v", v)]:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {label} must be bfloat16, got {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name}: {label} must be (b, s, heads, width), got {tuple(t.shape)}")
+    b, s, H, d_qk = q.shape
+    K, d_v = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (b, s, K, d_qk) or tuple(v.shape) != (b, s, K, d_v) or K == 0 or H % K:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} are not one GQA layer")
+    if (d_qk, d_v) not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"{name}: no instance for head widths ({d_qk}, {d_v}); built: {ATTENTION_HEAD_DIMS}")
+    if positions.dtype != torch.int32:
+        raise TypeError(f"{name}: positions must be int32, got {positions.dtype}")
+    if tuple(positions.shape) != (b, s) or (s > 1 and positions.stride(1) != 1):
+        raise ValueError(f"{name}: positions must be (b, s) = {(b, s)} with a contiguous sequence dimension, "
+                         f"got {tuple(positions.shape)} strides {positions.stride()}")
+    if window is not None and not 0 < window < 2**31:
+        raise ValueError(f"{name}: window must be None or a positive int32, got {window}")
+    more = list(more(b, s, H, K, d_qk, d_v))
+    bf16 = [("q", q), ("k", k), ("v", v)] + [(lab, t) for lab, t, dt, _ in more if dt == torch.bfloat16]
+    for label, t, dt, shape in more:
+        _check(f"{name} {label}", t, dt, shape)
+        if dt != torch.bfloat16 and not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    for label, t in bf16:  # the kernels read and write 16 bytes a thread
+        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} needs a contiguous last dimension, strides in multiples of 8 "
+                             f"elements and a 16-byte aligned start; got strides {t.stride()}, start "
+                             f"{t.data_ptr() % 16} mod 16")
+    dev = q.device
+    for t in [k, v, positions] + [t for _, t, _, _ in more]:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors only, got {dev} (models.attention._sdpa is the plain version)")
+    return b, s, H, K, d_qk, d_v
+
+
+def _attention_launch(fn: str, ptrs: list, tensors: list, b, s, H, K, window, d_qk, d_v, scale, dev) -> None:
+    """One of K6's C entry points: ``ptrs`` the 12 tensors (or None) in
+    ``attention.cu``'s order, ``tensors`` q, k, v, dO (or None) whose
+    (batch, sequence, head) strides it reads, then the positions."""
+    from repro_torch.kernels.build import load_library
+
+    strides = [st for t in tensors[:4] for st in (t.stride()[:3] if t is not None else (0, 0, 0))]
+    strides.append(tensors[4].stride(0))
+    err = getattr(load_library(), fn)(
+        (ctypes.c_void_p * 12)(*(None if t is None else _ptr(t) for t in ptrs)),
+        (ctypes.c_longlong * 13)(*strides), b, s, H, K, window or 0, d_qk, d_v, scale, _stream(dev),
+    )
+    _raise_on(fn, err)
+
+
+def attention_fwd(q, k, v, positions, window: int | None, scale: float):
+    """K6's forward: causal GQA over the whole sequence, query head ``h``
+    reading KV head ``h // (H // K)``, a key visible to a query where
+    ``kpos <= qpos`` (and ``kpos > qpos - window`` with a window), the
+    products scaled in float32 by ``scale``. Takes q (b, s, H, d_qk), k
+    (b, s, K, d_qk), v (b, s, K, d_v) bf16 in any layout with a
+    contiguous, 16-byte aligned head width, and positions (b, s) int32.
+    Returns ``(o, lse, bounds)``: o (b, s, H, d_v) bf16, the log-sum-exp
+    (b, H, s) float32 (+inf for a query that sees no key), and the tile
+    bounds (:func:`attention_bounds_shape`) the backward reads again.
+    CUDA tensors only; on anything else it raises (see
+    :func:`_attention_check`)."""
+    b, s, H, K, d_qk, d_v = _attention_check("attention_fwd", q, k, v, positions, window)
+    dev = q.device
+    o = torch.empty((b, s, H, d_v), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((b, H, s), dtype=torch.float32, device=dev)
+    bounds = torch.empty(attention_bounds_shape(b, s), dtype=torch.int32, device=dev)
+    if b * s:
+        _attention_launch("attention_fwd_launch", [q, k, v, positions, bounds, o, lse] + [None] * 5,
+                          [q, k, v, None, positions], b, s, H, K, window, d_qk, d_v, scale, dev)
+        LAUNCHES["attention_fwd"] += 1
+    return o, lse, bounds
+
+
+def attention_bwd(q, k, v, positions, o, lse, bounds, do, window: int | None, scale: float):
+    """K6's backward: ``(dq, dk, dv)`` in q/k/v's shapes, bf16, from the
+    forward's inputs, its ``o``, ``lse`` and ``bounds``, and ``do`` (b, s,
+    H, d_v) bf16 in any layout :func:`attention_fwd` takes for q. The
+    gradients of a KV head sum its G query heads in a fixed order; no
+    atomics, so a repeat gives the same bits. CUDA tensors only."""
+    def more(b, s, H, K, d_qk, d_v):
+        return [("do", do, torch.bfloat16, (b, s, H, d_v)), ("o", o, torch.bfloat16, (b, s, H, d_v)),
+                ("lse", lse, torch.float32, (b, H, s)),
+                ("bounds", bounds, torch.int32, attention_bounds_shape(b, s))]
+
+    b, s, H, K, d_qk, d_v = _attention_check("attention_bwd", q, k, v, positions, window, more)
+    if not o.is_contiguous():
+        raise ValueError("attention_bwd: o must be contiguous (the forward's output)")
+    dev = q.device
+    dq = torch.empty((b, s, H, d_qk), dtype=torch.bfloat16, device=dev)
+    dk = torch.empty((b, s, K, d_qk), dtype=torch.bfloat16, device=dev)
+    dv = torch.empty((b, s, K, d_v), dtype=torch.bfloat16, device=dev)
+    dsum = torch.empty((b, H, s), dtype=torch.float32, device=dev)
+    if b * s:
+        _attention_launch("attention_bwd_launch", [q, k, v, positions, bounds, o, lse, do, dq, dk, dv, dsum],
+                          [q, k, v, do, positions], b, s, H, K, window, d_qk, d_v, scale, dev)
+        LAUNCHES["attention_bwd"] += 1
+    return dq, dk, dv
+
+
 __all__ = [
     "ADAMW_MAX_LEAVES",
+    "ATTENTION_BOUNDS_ROWS",
+    "ATTENTION_HEAD_DIMS",
     "LAUNCHES",
     "adamw_step",
     "adamw_step_plan",
+    "attention_bounds_shape",
+    "attention_bwd",
+    "attention_fwd",
     "edge_scan",
     "edge_scan_plan",
     "edge_scan_sharded",

@@ -13,8 +13,15 @@ scalar is broadcast to (b,), so scalar-pos decode is the per-row write
 with every row at the same position, bit for bit.
 
 Attention is the reference's two products around a masked float32
-softmax (``_sdpa``), not a fused library kernel, so that the port and
-the reference compute the same steps.
+softmax (``_sdpa``), so that the port and the reference compute the same
+steps, everywhere but in one place: ``gqa_full`` on CUDA bf16 tensors at a
+head width K6 is built for (``kernels.ops.ATTENTION_HEAD_DIMS``, 128)
+runs K6 (``kernels/csrc/attention.cu``), the same function with the
+scores kept on the SM, its backward a kernel too (:class:`_K6`). K6
+keeps the products in float32 where ``_sdpa`` rounds the scores to bf16
+before the scale. CPU tensors, other head widths and dtypes, decode and
+cross-attention keep ``_sdpa``. The tracer counts each ``gqa_full`` by
+route (``attention_calls``, sites ``kernel`` and ``plain``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import trace
+from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _normal, apply_rope, init_linear, init_rms_norm, rms_norm, rope_freqs
 
@@ -43,6 +51,32 @@ def _sdpa(q, k, v, mask, scale):
     scores = torch.where(mask[:, None, None, :, :], scores.to(torch.float32), NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+class _K6(torch.autograd.Function):
+    """K6 as one autograd node: q (b, s, H, hd), k/v (b, s, K, hd), bf16,
+    on the card -> (b, s, H, hd); its backward is K6's backward kernels,
+    from the forward's output, log-sum-exp and tile bounds."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, window, scale):
+        o, lse, bounds = ops.attention_fwd(q, k, v, positions, window, scale)
+        ctx.save_for_backward(q, k, v, positions, o, lse, bounds)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, positions, o, lse, bounds = ctx.saved_tensors
+        dq, dk, dv = ops.attention_bwd(q, k, v, positions, o, lse, bounds, do.contiguous(), ctx.window, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _k6_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """K6 runs on what it was built for, as its input shows: CUDA bf16
+    tensors at head widths it holds."""
+    return (q.is_cuda and all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and (q.shape[-1], v.shape[-1]) in ops.ATTENTION_HEAD_DIMS)
 
 
 def init_gqa(generator, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) -> dict:
@@ -82,10 +116,14 @@ def gqa_full(
     H, K = cfg.num_heads, cfg.num_kv_heads
     G = H // K
     q, k, v = _gqa_qkv(params, x, positions, cfg)
-    qg = q.reshape(b, s, K, G, hd)
-    mask = _causal_window_mask(positions, positions, window)
-    out = _sdpa(qg, k, v, mask, hd ** -0.5).reshape(b, s, H * hd)
-    out = torch.matmul(out, params["wo"].to(x.dtype))
+    if _k6_takes(q, k, v):
+        trace.count("attention_calls", 1, "kernel")
+        out = _K6.apply(q, k, v, positions, window, hd ** -0.5)
+    else:
+        trace.count("attention_calls", 1, "plain")
+        mask = _causal_window_mask(positions, positions, window)
+        out = _sdpa(q.reshape(b, s, K, G, hd), k, v, mask, hd ** -0.5)
+    out = torch.matmul(out.reshape(b, s, H * hd), params["wo"].to(x.dtype))
     return out, (k, v)
 
 

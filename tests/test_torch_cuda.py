@@ -1204,3 +1204,149 @@ def test_cuda_adamw_one_launch_for_yis_leaves_and_the_bias_left_out(cuda_device)
         assert tops.LAUNCHES["adamw_step"] == 1 and counts["adamw_leaves"] == {"kernel": want}
         assert all(torch.equal(named[k], v) for k, v in bias.items())
         assert len(tree_leaves(opt["mu"])) == want
+
+
+# ---------------------------------------------------------------------------
+# K6 attention: against models.attention._sdpa in float32 from the same
+# bf16 inputs
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py, whose K6 checks these tests share: its cases, inputs,
+    plain version and block errors, and K6_TOL with its reasons."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_smoke = _chip_smoke()
+_K6_CASES = list(_smoke.K6_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,H,K,window,kind", _K6_CASES)
+def test_cuda_attention_matches_float32_sdpa(cuda_device, b, s, H, K, window, kind):
+    """K6's O and its dq, dk, dv within ``chip_smoke.K6_TOL`` of
+    ``_sdpa`` in float32, block by block (``chip_smoke.k6_block_errors``), one
+    forward and one backward launch a call."""
+    pos = _smoke.k6_positions(kind, b, s, cuda_device)
+    q, k, v, do = _smoke.k6_inputs(b, s, H, K, cuda_device)
+    want = _smoke.k6_run(_smoke.k6_plain(pos, window), q, k, v, do, torch.float32)
+    tops.reset_launches()
+    got = _smoke.k6_run(_smoke.k6_kernel(pos, window), q, k, v, do, torch.bfloat16)
+    assert (tops.LAUNCHES["attention_fwd"], tops.LAUNCHES["attention_bwd"]) == (1, 1)
+    assert all(a.dtype == torch.bfloat16 and a.shape == w.shape for a, w in zip(got, want))
+    err = dict(zip(("o", "dq", "dk", "dv"), _smoke.k6_block_errors(got, want)))
+    assert all(e <= _smoke.K6_TOL for e in err.values()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,H,K,window,kind", [_K6_CASES[0], _K6_CASES[4], _K6_CASES[7]])
+def test_cuda_attention_repeats_bit_for_bit(cuda_device, b, s, H, K, window, kind):
+    """The forward and the backward give the same bits on a second call:
+    no float atomics; a KV head's gradients sum its G query heads in a
+    fixed order."""
+    pos = _smoke.k6_positions(kind, b, s, cuda_device)
+    q, k, v, do = _smoke.k6_inputs(b, s, H, K, cuda_device, seed=1)
+    runs = [_smoke.k6_run(_smoke.k6_kernel(pos, window), q, k, v, do, torch.bfloat16) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_forces_no_sync(cuda_device):
+    """K6's forward and backward under the sync debug mode "error": no
+    call waits for the card."""
+    pos = _smoke.k6_positions("index", 2, 300, cuda_device)
+    q, k, v, do = _smoke.k6_inputs(2, 300, 8, 2, cuda_device)
+    # warm: builds and loads the library
+    _smoke.k6_run(_smoke.k6_kernel(pos, None), q, k, v, do, torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _smoke.k6_kernel(pos, None)(*leaves).backward(do)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(t.grad is not None for t in leaves)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_yi_layer_remat_launches_and_repeats(cuda_device):
+    """A bf16 Yi-9B layer (32 heads over 4 KV heads, head 128) with remat,
+    through ``loss_fn``: K6's forward launches twice a step (the forward
+    and remat's recompute) and its backward once, the tracer counts the
+    two ``gqa_full`` calls at ``kernel``, and the loss and every gradient
+    repeat bit for bit."""
+    import dataclasses
+
+    from repro_torch import trace
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import stream_tokens, synthetic_token_batch
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("yi_9b"), num_layers=1, d_ff=1024, vocab=2000, remat=True,
+                              compute_dtype="bfloat16")
+    params = init_params(cfg, 0, cuda_device)
+    batch = synthetic_token_batch(stream_tokens(1, 0, (2, 512), cfg.vocab, cuda_device))
+    runs = []
+    trace.disable()
+    trace.collect()
+    for i in range(2):
+        leaves = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+        tops.reset_launches()
+        if i == 0:
+            trace.enable()
+        try:
+            loss, _ = loss_fn(leaves, cfg, batch)
+            loss.backward()
+            counts = trace.collect()["counters"] if i == 0 else None
+        finally:
+            trace.disable()
+        assert (tops.LAUNCHES["attention_fwd"], tops.LAUNCHES["attention_bwd"]) == (2, 1)
+        if counts is not None:
+            assert counts["attention_calls"] == {"kernel": 2}
+        runs.append([loss.detach()] + [a.grad for a in tree_leaves(leaves)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype,route", [(128, "bfloat16", "kernel"), (64, "bfloat16", "plain"),
+                                            (128, "float32", "plain")])
+def test_cuda_gqa_full_routes_by_its_input(cuda_device, hd, dtype, route):
+    """``gqa_full`` on the card runs K6 for bf16 at head 128 and ``_sdpa``
+    otherwise (another head width, float32), with no mask built for K6;
+    the tracer counts the route, and the plain route launches nothing."""
+    import dataclasses
+
+    from repro_torch import trace
+    from repro_torch.models.attention import _causal_window_mask, _gqa_qkv, _sdpa, gqa_full, init_gqa
+    from repro_torch.models.config import ArchConfig
+
+    cfg = ArchConfig(name="route", arch_type="llama", num_layers=1, d_model=4 * hd, num_heads=4, num_kv_heads=2,
+                     d_ff=64, vocab=100, head_dim=hd)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    dt = getattr(torch, dtype)
+    params = init_gqa(gen, cfg, dt, cuda_device)
+    x = torch.randn((2, 200, cfg.d_model), generator=gen, device=cuda_device).to(dt)
+    pos = _smoke.k6_positions("index", 2, 200, cuda_device)
+    tops.reset_launches()
+    trace.disable()
+    trace.collect()
+    trace.enable()
+    try:
+        out, _ = gqa_full(params, x, pos, dataclasses.replace(cfg, compute_dtype=dtype))
+        counts = trace.collect()["counters"]
+    finally:
+        trace.disable()
+    assert counts["attention_calls"] == {route: 1}
+    assert tops.LAUNCHES["attention_fwd"] == (route == "kernel")
+    if route == "plain":  # the bits of _sdpa as before
+        q, k, v = _gqa_qkv(params, x, pos, cfg)
+        want = _sdpa(q.reshape(2, 200, 2, 2, hd), k, v, _causal_window_mask(pos, pos, None), hd ** -0.5)
+        assert torch.equal(out, torch.matmul(want.reshape(2, 200, 4 * hd), params["wo"]))

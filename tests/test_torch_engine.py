@@ -360,7 +360,7 @@ def test_whole_slice_matches_reference(splice):
     assert tres.messages_evicted == 0
     # on CPU tensors the wrappers take the plain versions: no launches
     assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0,
-                             "adamw_step": 0}
+                             "adamw_step": 0, "attention_fwd": 0, "attention_bwd": 0}
 
 
 def test_sparrow_chain_dense_sparse_control_bit_exact(splice):

@@ -544,7 +544,7 @@ def test_launch_counts_only_count_kernel_launches():
     xb, y, ml, ms, a, c = _weight_inputs(0, 9, 4, 8)
     tops.weight_update(_t(xb), _t(y), _t(ml), _t(ms), _t(a), _t(c), num_bins=8)
     assert tops.LAUNCHES == {"edge_scan": 0, "round_step": 0, "queue_ingest": 0, "weight_update": 0,
-                             "adamw_step": 0}
+                             "adamw_step": 0, "attention_fwd": 0, "attention_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -748,3 +748,138 @@ def test_adamw_step_checks_its_inputs():
         call(good[:6])
     with pytest.raises(TypeError):
         call(good, b1c=torch.ones(2))
+
+
+# ---------------------------------------------------------------------------
+# K6 attention: the wrapper's checks, its tile bounds and its instances
+# ---------------------------------------------------------------------------
+
+
+def _k6_args(dt=torch.bfloat16, b=2, s=5, H=4, K=2, hd=128, dv=None):
+    """q, k, v, positions, dO of one layer on the CPU, every tensor K6
+    would take but for the device."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(dt)
+                   for shape in ((b, s, H, hd), (b, s, K, hd), (b, s, K, dv or hd), (b, s, H, dv or hd)))
+    return q, k, v, torch.arange(s, dtype=torch.int32).expand(b, s), do
+
+
+def _k6_misaligned(t):
+    """t's values at a start 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    return buf.copy_(t)
+
+
+#: (what is wrong, the change to (q, k, v, positions, dO, window), the
+#: error it raises, the words of its message)
+_K6_REFUSED = {
+    "cpu_tensors": (lambda a: a, ValueError, "CUDA tensors only"),
+    "float32": (lambda a: tuple(t.float() if t.is_floating_point() else t for t in a[:5]) + a[5:], TypeError,
+                "bfloat16"),
+    "float16_k": (lambda a: (a[0], a[1].half()) + a[2:], TypeError, "k must be bfloat16"),
+    "head_64": (lambda a: _k6_args(hd=64) + a[5:], ValueError, "no instance for head widths"),
+    "head_96_values": (lambda a: _k6_args(dv=96) + a[5:], ValueError, "no instance for head widths"),
+    "misaligned_start": (lambda a: (_k6_misaligned(a[0]),) + a[1:], ValueError, "16-byte aligned"),
+    "strided_width": (lambda a: (a[0],) + (torch.empty(2, 5, 2, 256, dtype=torch.bfloat16)[..., ::2],) + a[2:],
+                      ValueError, "contiguous last dimension"),
+    "stride_not_8": (lambda a: (torch.empty(2, 5, 4, 132, dtype=torch.bfloat16)[..., :128],) + a[1:], ValueError,
+                     "multiples of 8"),
+    "positions_int64": (lambda a: a[:3] + (a[3].long(),) + a[4:], TypeError, "int32"),
+    "positions_shape": (lambda a: a[:3] + (a[3][:1],) + a[4:], ValueError, "positions must be"),
+    "window_zero": (lambda a: a[:5] + (0,), ValueError, "window"),
+    "heads_not_grouped": (lambda a: (_k6_args(H=3)[0],) + a[1:3] + (a[3], _k6_args(H=3)[4]) + a[5:], ValueError,
+                          "not one GQA layer"),
+    "kv_lengths_differ": (lambda a: (a[0], a[1][:, :4]) + a[2:], ValueError, "not one GQA layer"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K6_REFUSED))
+@pytest.mark.parametrize("entry", ["attention_fwd", "attention_bwd"])
+def test_attention_refuses_what_it_does_not_take(case, entry, monkeypatch):
+    """K6's forward and backward raise, before any launch and without
+    building the library, on CPU tensors (``_sdpa`` is the plain version:
+    ``gqa_full`` routes them there), on dtypes other than bf16, on head
+    widths it holds no instance of, on layouts it cannot read with 16-byte
+    loads, on positions that are not (b, s) int32, on a window below 1
+    and on shapes that are not one GQA layer."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "load_library", lambda: pytest.fail("the library was loaded"))
+    change, err, words = _K6_REFUSED[case]
+    q, k, v, pos, do, window = change(_k6_args() + (None,))
+    b, s, H = q.shape[:3]
+    tops.reset_launches()
+    with pytest.raises(err, match=words):
+        if entry == "attention_fwd":
+            tops.attention_fwd(q, k, v, pos, window, 0.1)
+        else:
+            tops.attention_bwd(q, k, v, pos, torch.zeros_like(do), torch.zeros(b, H, s),
+                               torch.zeros(tops.attention_bounds_shape(b, s), dtype=torch.int32), do, window, 0.1)
+    assert tops.LAUNCHES["attention_fwd"] == tops.LAUNCHES["attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("what", ["o", "lse", "bounds", "do"])
+def test_attention_bwd_checks_the_forwards_outputs(what):
+    """The backward's own inputs (the forward's O, log-sum-exp and tile
+    bounds, and dO) are checked for dtype and shape before the device."""
+    q, k, v, pos, do = _k6_args()
+    b, s, H = q.shape[:3]
+    args = {"o": torch.zeros_like(do), "lse": torch.zeros(b, H, s),
+            "bounds": torch.zeros(tops.attention_bounds_shape(b, s), dtype=torch.int32), "do": do}
+    args[what] = args[what][..., :1]
+    with pytest.raises(ValueError, match=f"attention_bwd {what}: expected shape"):
+        tops.attention_bwd(q, k, v, pos, args["o"], args["lse"], args["bounds"], args["do"], None, 0.1)
+
+
+@pytest.mark.parametrize("s,tiles", [(1, 1), (31, 1), (32, 1), (33, 2), (129, 5), (4096, 128)])
+def test_attention_bounds_shape_covers_every_position(s, tiles):
+    """One bounds entry (smallest, largest position) a run of
+    ``ATTENTION_BOUNDS_ROWS`` positions, the last run possibly shorter."""
+    assert tops.attention_bounds_shape(3, s) == (3, tiles, 2)
+    assert (tiles - 1) * tops.ATTENTION_BOUNDS_ROWS < s <= tiles * tops.ATTENTION_BOUNDS_ROWS
+
+
+def test_attention_constants_are_the_kernels():
+    """The bounds' rows are ``attention.cu``'s quantum, every tile of the
+    kernels is a whole number of them, and the library holds an instance
+    (forward and backward) of each head-width pair the wrapper routes."""
+    src = (Path(tops.__file__).parent / "csrc" / "attention.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kQuantum"] == tops.ATTENTION_BOUNDS_ROWS
+    for name in ("kFwdKeys", "kDqKeys", "kDkvRows"):
+        assert consts[name] % consts["kQuantum"] == 0, name
+    shapes = {m.group(1): 16 * int(m.group(2)) * int(m.group(3))
+              for m in re.finditer(r"using (\w+)Shape = Shape<(\d+), (\d+)>;", src)}
+    assert set(shapes) == {"Fwd", "Dq", "Dkv"}
+    assert all(rows % consts["kQuantum"] == 0 for rows in shapes.values()), shapes
+    for d_qk, d_v in tops.ATTENTION_HEAD_DIMS:
+        for kernel in ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel"):
+            assert f"{kernel}<{d_qk}, {d_v}>" in src
+    # deterministic: no atomic function and no PTX atomic or reduction
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", src)
+
+
+@pytest.mark.parametrize("fault", ["none", "late_rows_zeroed", "one_row_off", "one_key_row_off"])
+def test_k6_block_errors_see_a_row_gone_wrong(fault):
+    """The card check's measure (``chip_smoke.k6_block_errors``) on a
+    float32 ``_sdpa`` against itself: 0 when nothing changed, and above
+    ``K6_TOL`` where the last 300 rows of O are lost, or one query's dq or
+    one key's dk is 10 % off."""
+    from test_torch_cuda import _smoke
+
+    b, s, H, K = 1, 1000, 8, 2
+    pos = _smoke.k6_positions("index", b, s, "cpu")
+    q, k, v, do = _smoke.k6_inputs(b, s, H, K, "cpu")
+    want = _smoke.k6_run(_smoke.k6_plain(pos, None), q, k, v, do, torch.float32)
+    got = [w.clone() for w in want]
+    if fault == "late_rows_zeroed":
+        got[0][:, -300:] = 0
+    elif fault == "one_row_off":
+        got[1][:, 777, 3] *= 0.9
+    elif fault == "one_key_row_off":
+        got[2][:, 500, 1] *= 0.9
+    err = _smoke.k6_block_errors(got, want)
+    if fault == "none":
+        assert err == [0.0] * 4
+    else:
+        assert max(err) > _smoke.K6_TOL, err

@@ -306,6 +306,49 @@ class TestAttention:
         want = torch.einsum("bhqs,bshd->bqhd", torch.softmax(sc, -1), vi)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
+    @pytest.mark.parametrize("window", [None, 5])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("hd", [8, 128])
+    def test_gqa_full_on_the_cpu_is_sdpa(self, hd, dtype, window):
+        """On CPU tensors ``gqa_full`` runs ``_sdpa``, bit for bit the
+        products and masked softmax it ran before K6, at every head width
+        and dtype (K6's bf16 at 128 included: K6 runs on the card only),
+        and the tracer counts each call at ``plain``."""
+        from repro_torch import trace
+
+        cfg = dataclasses.replace(TINY_ARCH, d_model=4 * hd, num_heads=4, num_kv_heads=2, head_dim=hd)
+        cfg = port_cfg(cfg)
+        params = {n: t(a, dtype) for n, a in _gqa_params(cfg).items()}
+        x = t(np.random.default_rng(7).normal(size=(2, 11, 4 * hd)).astype(np.float32), dtype)
+        pos = torch.arange(11, dtype=torch.int32).expand(2, 11)
+        trace.disable()
+        trace.collect()
+        trace.enable()
+        try:
+            out, (k, v) = tattn.gqa_full(params, x, pos, cfg, window)
+            counts = trace.collect()["counters"]
+        finally:
+            trace.disable()
+        assert counts["attention_calls"] == {"plain": 1}
+        q, k_want, v_want = tattn._gqa_qkv(params, x, pos, cfg)
+        mask = tattn._causal_window_mask(pos, pos, window)
+        want = tattn._sdpa(q.reshape(2, 11, 2, 2, hd), k_want, v_want, mask, hd ** -0.5).reshape(2, 11, 4 * hd)
+        assert torch.equal(out, torch.matmul(want, params["wo"]))
+        assert torch.equal(k, k_want) and torch.equal(v, v_want)
+
+    def test_k6_is_never_taken_on_the_cpu(self):
+        """``_k6_takes`` reads only its input: bf16 at head 128 on the CPU
+        is not K6's; called anyway, K6's node raises before any launch."""
+        from repro_torch.kernels import ops as tops
+
+        q, k, v = (torch.zeros((1, 4, h, 128), dtype=torch.bfloat16) for h in (4, 2, 2))
+        pos = torch.arange(4, dtype=torch.int32).expand(1, 4)
+        assert not tattn._k6_takes(q, k, v)
+        tops.reset_launches()
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            tattn._K6.apply(q, k, v, pos, None, 128 ** -0.5)
+        assert tops.LAUNCHES["attention_fwd"] == 0
+
     @pytest.mark.parametrize("case", ["scalar", "per_row", "ring"])
     def test_gqa_decode(self, case):
         """scalar ``pos``, per-row ``pos`` (rows at different depths) and a
