@@ -227,3 +227,9 @@ def test_traffic_counters_match_reference():
     b = tresult.TrafficCounters.from_shards(**kw)
     assert vars(a) == vars(b)
     assert (b.sent_ici, b.bytes_dcn) == (a.sent_ici, a.bytes_dcn)
+
+
+def test_tier_runs_torch_at_one_thread():
+    """tests/conftest.py sets one intra-op thread for every test process;
+    a file or fixture that raises it oversubscribes the host's cores."""
+    assert torch.get_num_threads() == 1

@@ -458,18 +458,14 @@ def worlds(tmp_path_factory):
 def single():
     """The single-device runs, at the ranks' one intra-op thread
     (``spawn_world``), so both sides reduce in the same order."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        from repro_torch.core.tmsn_sgd import oracle_run
+    from repro_torch.core.tmsn_sgd import oracle_run
 
-        return {"toy": {name: _run_toy(name) for name in TOY},
-                "sparrow": {name: _run_sparrow(name) for name in SPARROW},
-                "pod_flat": {name: _run_toy(name, None, POD_FLAT) for name in POD_FLAT},
-                "sgd": _run_sgd("sgd_dense"),
-                "sgd_oracle": oracle_run(_sgd_worker(), SGD_W, 8, eps=0.0, seed=0).certs}
-    finally:
-        torch.set_num_threads(threads)
+    assert torch.get_num_threads() == 1
+    return {"toy": {name: _run_toy(name) for name in TOY},
+            "sparrow": {name: _run_sparrow(name) for name in SPARROW},
+            "pod_flat": {name: _run_toy(name, None, POD_FLAT) for name in POD_FLAT},
+            "sgd": _run_sgd("sgd_dense"),
+            "sgd_oracle": oracle_run(_sgd_worker(), SGD_W, 8, eps=0.0, seed=0).certs}
 
 
 def _assert_match(got, want, level):
