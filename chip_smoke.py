@@ -41,11 +41,14 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              bound, the plain update's and torch._fused_adamw_'s (a
              yardstick; ``chip_smoke.py --k5`` runs the build and K5 alone);
              K6 attention (forward and backward) against ``_sdpa`` in
-             float32 from the same bf16 inputs at K6_CASES (Yi-9B's heads
-             at 4096 with one and two sequences, ragged lengths, a window,
-             positions not the index), block by block to K6_TOL, with the bf16
-             ``_sdpa``'s errors beside it, bit for bit on a repeat, and at
-             ``sgd_long``'s shape its device ms by kernel (held within
+             float32 from the same bf16 inputs at K6_CASES (head 128:
+             Yi-9B's heads at 4096 with one and two sequences, ragged
+             lengths, a window, positions not the index) and K6_MLA_CASES
+             (keys 192, values 128: MLA expanded at Moonlight's 16 heads,
+             at ``sgd_zipf_4k``'s shape among them, and DeepSeek-V3's 128),
+             block by block to K6_TOL, with the bf16 ``_sdpa``'s errors
+             beside it, bit for bit on a repeat, and at ``sgd_long``'s and
+             ``sgd_zipf_4k``'s shapes its device ms by kernel (held within
              K6_DEVICE_VS_EVENTS of its CUDA-event ms) against the causal
              FLOP bound, with the plain ``_sdpa``'s and
              ``scaled_dot_product_attention``'s ms (a yardstick;
@@ -196,7 +199,8 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              metrics, prefill ms, the decode step against its bytes bound
              (every expert's weights read once a step); then one loss with
              its gradients on 1 x 256 tokens (bf16 gradients beside the
-             params);
+             params); its MLA prefill and loss run K6's 192/128 instance
+             (launches_serve_deepseek in the kernels line);
   families_full  a 2 x 2048 prefill and 32 greedy decode steps through
              serve() for Gemma3-12B at full width, depth cut 48 -> 6 (one 5:1
              unit), Zamba2-1.2B whole and Grok-1 at full width, depth cut
@@ -205,7 +209,7 @@ Phases (each prints ``phase <name> ...``; any failure exits nonzero):
              teacher-forced logits within LM_BF16_TOL of each row's scale and
              the free-running tokens reported; in float32 compute, the same tokens. The family
              phases launch none of K1-K4 (launches_families in the kernels
-             line);
+             line, serve_deepseek's apart);
   encdec_small_ref  reduced() of whisper_large_v3 (encoder, cross-attention)
              and phi3_vision_4p2b (patch splice) in float32, built on the
              CPU from a seed: loss, every gradient, prefill logits and 16
@@ -2383,6 +2387,25 @@ K6_CASES = (
 )
 #: K6 timed at ``yi9b_l1.sgd_long``'s attention: (b, s, H, K), head 128
 K6_TIMED = (2, 4096, 32, 4)
+#: K6's (192, 128) instance, MLA expanded (DeepSeek-V3's and Moonlight's
+#: keys of 128 + 64 rotary, values of 128; a KV head a query head):
+#: Moonlight's 16 heads at one sequence of 4096 and at
+#: ``moonlight_l5.sgd_zipf_4k``'s four, a short odd length, positions that
+#: are not the index, and DeepSeek-V3's 128 heads at ``serve_deepseek``'s
+#: prompt of 512
+K6_MLA_CASES = (
+    (1, 4096, 16, 16, None, "index"),
+    (4, 4096, 16, 16, None, "index"),
+    (2, 129, 16, 16, None, "index"),
+    (2, 300, 16, 16, None, "offset"),
+    (2, 512, 128, 128, None, "index"),
+)
+#: the (192, 128) cases run twice for the bit-for-bit repeat in the card tests
+K6_MLA_REPEATED = (K6_MLA_CASES[1], K6_MLA_CASES[3], K6_MLA_CASES[4])
+#: ... timed at ``moonlight_l5.sgd_zipf_4k``'s attention: (b, s, H, K)
+K6_MLA_TIMED = (4, 4096, 16, 16)
+#: K6's instances: (qk, v) head widths, its checks, the shape it is timed at
+K6_INSTANCES = (((128, 128), K6_CASES, K6_TIMED), ((192, 128), K6_MLA_CASES, K6_MLA_TIMED))
 #: largest block error (k6_block_errors) K6 may read against the float32
 #: ``_sdpa``, for O, dq, dk and dv. K6 rounds O, dQ, dK and dV to bf16 (half
 #: a bf16 step, 2^-9 of the value), and P and dS to bf16 where they enter
@@ -2419,14 +2442,16 @@ def k6_positions(kind: str, b: int, s: int, dev):
     return (ar // 2).expand(b, s).contiguous()
 
 
-def k6_inputs(b, s, H, K, dev, seed=SEED, hd=128):
-    """q, k, v and dO: unit normals rounded to bf16, drawn from ``seed``."""
+def k6_inputs(b, s, H, K, dev, seed=SEED, hd=128, dv=None):
+    """q, k, v and dO: unit normals rounded to bf16, drawn from ``seed``;
+    q and k ``hd`` wide, v and dO ``dv`` (``hd`` where None)."""
     import torch
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    dv = dv or hd
     return [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            for shape in ((b, s, H, hd), (b, s, K, hd), (b, s, K, hd), (b, s, H, hd))]
+            for shape in ((b, s, H, hd), (b, s, K, hd), (b, s, K, dv), (b, s, H, dv))]
 
 
 def k6_run(fn, q, k, v, do, dtype):
@@ -2447,7 +2472,7 @@ def k6_plain(pos, window):
     def fn(q, k, v):
         b, s, H, hd = q.shape
         K = k.shape[2]
-        return _sdpa(q.reshape(b, s, K, H // K, hd), k, v, mask, hd ** -0.5).reshape(q.shape)
+        return _sdpa(q.reshape(b, s, K, H // K, hd), k, v, mask, hd ** -0.5).reshape(b, s, H, v.shape[-1])
 
     return fn
 
@@ -2480,16 +2505,67 @@ def k6_block_errors(got, want) -> list:
 
 def k6_check(time_ms) -> dict:
     """K6 against ``_sdpa`` computed in float32 from the same bf16 inputs,
-    at every case of K6_CASES: forward and dq, dk, dv by block error
-    (k6_block_errors, held to K6_TOL), and the bf16 ``_sdpa``'s own errors
-    beside it; the forward and the backward repeat bit for bit. At
-    K6_TIMED: device ms (the sum over K6's kernels of the mean of the
-    profiler's records of each, with their count), CUDA-event ms (the two
-    held within K6_DEVICE_VS_EVENTS of each other), the bound at
-    BF16_OPS_PER_S on causal FLOPs (forward 4 b H hd s(s+1)/2, backward 2.5
-    times it), the plain ``_sdpa``'s ms and
-    ``scaled_dot_product_attention``'s (a yardstick only: the port never
-    calls it). Returns the kernels line's record."""
+    at every case of each instance (K6_INSTANCES): forward and dq, dk, dv by
+    block error (k6_block_errors, held to K6_TOL), and the bf16 ``_sdpa``'s
+    own errors beside it; the forward and the backward repeat bit for bit.
+    Each instance timed at its shape (k6_times); the 128/128 instance's
+    times are the record's own, the 192/128 instance's its ``mla`` entry.
+    Returns the kernels line's record."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    rec = {"name": "attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/attention.cu",
+           "replaces": "none (the reference's attention is plain jnp, fused by XLA)", "launches_fwd": None,
+           "launches_bwd": None, "tolerance": K6_TOL, "max_block_err": {}, "plain_bf16_block_err": {}}
+    worst, worst_plain = [0.0] * 4, [0.0] * 4
+    for (hd, dv), cases, _ in K6_INSTANCES:
+        for b, s, H, K, window, kind in cases:
+            case = (b, s, H, K, hd, dv, window, kind)
+            pos = k6_positions(kind, b, s, dev)
+            q, k, v, do = k6_inputs(b, s, H, K, dev, hd=hd, dv=dv)
+            want = k6_run(k6_plain(pos, window), q, k, v, do, torch.float32)
+            perr = k6_block_errors(k6_run(k6_plain(pos, window), q, k, v, do, torch.bfloat16), want)
+            runs = []
+            for _ in range(2):
+                ops.reset_launches()
+                runs.append(k6_run(k6_kernel(pos, window), q, k, v, do, torch.bfloat16))
+                torch.cuda.synchronize()
+                if (ops.LAUNCHES["attention_fwd"], ops.LAUNCHES["attention_bwd"]) != (1, 1):
+                    raise AssertionError(f"K6 {case}: launches {ops.LAUNCHES}")
+            same = all(torch.equal(x, y) for x, y in zip(*runs))
+            err = k6_block_errors(runs[0], want)
+            worst = [max(x, y) for x, y in zip(worst, err)]
+            worst_plain = [max(x, y) for x, y in zip(worst_plain, perr)]
+            log(f"phase kernels K6 attention b={b} s={s} H={H} K={K} hd={hd} dv={dv} window={window} "
+                f"positions={kind} repeat_bitwise={same} block_err_o_dq_dk_dv={['%.3e' % e for e in err]} "
+                f"plain_bf16_block_err={['%.3e' % e for e in perr]} tolerance={K6_TOL}")
+            if not same:
+                raise AssertionError(f"K6 {case}: a repeat gave other bits")
+            if not all(e <= K6_TOL for e in err):
+                raise AssertionError(f"K6 {case}: block err {err} above {K6_TOL}")
+            del q, k, v, do, want, runs
+            torch.cuda.empty_cache()
+    rec["max_block_err"] = dict(zip(("o", "dq", "dk", "dv"), worst))
+    rec["plain_bf16_block_err"] = dict(zip(("o", "dq", "dk", "dv"), worst_plain))
+    for (hd, dv), _, shape in K6_INSTANCES:
+        times = k6_times(time_ms, *shape, hd, dv)
+        if (hd, dv) == (128, 128):
+            rec.update(times)
+        else:
+            rec["mla"] = times
+    return rec
+
+
+def k6_times(time_ms, b, s, H, K, hd, dv) -> dict:
+    """K6 at (b, s, H, K) and head widths (hd, dv): device ms (the sum over
+    K6's kernels of the mean of the profiler's records of each, with their
+    count), CUDA-event ms (the two held within K6_DEVICE_VS_EVENTS of each
+    other), the bound at BF16_OPS_PER_S on causal FLOPs (forward 2 (hd +
+    dv) a visible pair, backward 2 (3 hd + 2 dv): S again, dP, dV, dK, dQ),
+    the plain ``_sdpa``'s ms and ``scaled_dot_product_attention``'s (a
+    yardstick only: the port never calls it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2497,42 +2573,9 @@ def k6_check(time_ms) -> dict:
     from repro_torch.models.attention import _K6
 
     dev = torch.device("cuda")
-    scale = 128 ** -0.5
-    rec = {"name": "attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/attention.cu",
-           "replaces": "none (the reference's attention is plain jnp, fused by XLA)", "launches_fwd": None,
-           "launches_bwd": None, "tolerance": K6_TOL, "max_block_err": {}, "plain_bf16_block_err": {}}
-    worst, worst_plain = [0.0] * 4, [0.0] * 4
-    for b, s, H, K, window, kind in K6_CASES:
-        pos = k6_positions(kind, b, s, dev)
-        q, k, v, do = k6_inputs(b, s, H, K, dev)
-        want = k6_run(k6_plain(pos, window), q, k, v, do, torch.float32)
-        perr = k6_block_errors(k6_run(k6_plain(pos, window), q, k, v, do, torch.bfloat16), want)
-        runs = []
-        for _ in range(2):
-            ops.reset_launches()
-            runs.append(k6_run(k6_kernel(pos, window), q, k, v, do, torch.bfloat16))
-            torch.cuda.synchronize()
-            if (ops.LAUNCHES["attention_fwd"], ops.LAUNCHES["attention_bwd"]) != (1, 1):
-                raise AssertionError(f"K6 {b, s, H, K, window, kind}: launches {ops.LAUNCHES}")
-        same = all(torch.equal(x, y) for x, y in zip(*runs))
-        err = k6_block_errors(runs[0], want)
-        worst = [max(x, y) for x, y in zip(worst, err)]
-        worst_plain = [max(x, y) for x, y in zip(worst_plain, perr)]
-        log(f"phase kernels K6 attention b={b} s={s} H={H} K={K} window={window} positions={kind} "
-            f"repeat_bitwise={same} block_err_o_dq_dk_dv={['%.3e' % e for e in err]} "
-            f"plain_bf16_block_err={['%.3e' % e for e in perr]} tolerance={K6_TOL}")
-        if not same:
-            raise AssertionError(f"K6 {b, s, H, K, window, kind}: a repeat gave other bits")
-        if not all(e <= K6_TOL for e in err):
-            raise AssertionError(f"K6 {b, s, H, K, window, kind}: block err {err} above {K6_TOL}")
-        del q, k, v, do, want, runs
-        torch.cuda.empty_cache()
-    rec["max_block_err"] = dict(zip(("o", "dq", "dk", "dv"), worst))
-    rec["plain_bf16_block_err"] = dict(zip(("o", "dq", "dk", "dv"), worst_plain))
-
-    b, s, H, K = K6_TIMED
+    scale = hd ** -0.5
     pos = k6_positions("index", b, s, dev)
-    q, k, v, do = k6_inputs(b, s, H, K, dev)
+    q, k, v, do = k6_inputs(b, s, H, K, dev, hd=hd, dv=dv)
     o, lse, bounds = ops.attention_fwd(q, k, v, pos, None, scale)
 
     def fwd():
@@ -2557,8 +2600,9 @@ def k6_check(time_ms) -> dict:
         # the profiler drops records, as it does late in the whole smoke
         return (sum(ms for _, ms in per.values()) if per else None), per
 
-    flops = 4 * b * H * 128 * s * (s + 1) / 2
-    bound_fwd, bound_bwd = flops / BF16_OPS_PER_S * 1e3, 2.5 * flops / BF16_OPS_PER_S * 1e3
+    pairs = b * H * s * (s + 1) / 2
+    bound_fwd = pairs * 2 * (hd + dv) / BF16_OPS_PER_S * 1e3
+    bound_bwd = pairs * 2 * (3 * hd + 2 * dv) / BF16_OPS_PER_S * 1e3
     fwd_dev, fwd_recs = k6_device_ms(fwd)
     bwd_dev, bwd_recs = k6_device_ms(bwd)
     fwd_ms = time_ms(fwd, reps=5, samples=9)
@@ -2586,19 +2630,19 @@ def k6_check(time_ms) -> dict:
         lib_fwd_ms = time_ms(lambda: sdpa(lq, lk, lv, is_causal=True, scale=scale), reps=5, samples=9)
     do_t = do.transpose(1, 2)
     lib_fb_ms = time_ms(lambda: sdpa(lq, lk, lv, is_causal=True, scale=scale).backward(do_t), reps=3, samples=7)
-    rec.update(shape={"b": b, "s": s, "H": H, "K": K, "hd": 128}, fwd_device_ms=fwd_dev, fwd_device_records=fwd_recs,
-               bwd_device_ms=bwd_dev, bwd_device_records=bwd_recs, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-               fwd_bwd_ms=fb_ms, bound_fwd_ms=bound_fwd, bound_bwd_ms=bound_bwd, bound_by="operations",
-               fwd_share_of_bound=bound_fwd / fwd_dev if fwd_dev else None,
+    rec = dict(shape={"b": b, "s": s, "H": H, "K": K, "hd": hd, "dv": dv}, fwd_device_ms=fwd_dev,
+               fwd_device_records=fwd_recs, bwd_device_ms=bwd_dev, bwd_device_records=bwd_recs, fwd_ms=fwd_ms,
+               bwd_ms=bwd_ms, fwd_bwd_ms=fb_ms, bound_fwd_ms=bound_fwd, bound_bwd_ms=bound_bwd,
+               bound_by="operations", fwd_share_of_bound=bound_fwd / fwd_dev if fwd_dev else None,
                bwd_share_of_bound=bound_bwd / bwd_dev if bwd_dev else None,
                plain_fwd_ms=plain_fwd_ms, plain_fwd_bwd_ms=plain_fb_ms, library_fwd_ms=lib_fwd_ms,
                library_fwd_bwd_ms=lib_fb_ms,
                device_over_events={"fwd": fwd_dev / fwd_ms if fwd_dev else None,
                                    "bwd": bwd_dev / bwd_ms if bwd_dev else None})
-    log("phase kernels K6 attention timed " + json.dumps({k_: rec[k_] for k_ in rec if k_ not in ("name", "route")}))
+    log(f"phase kernels K6 attention timed hd={hd} dv={dv} " + json.dumps(rec))
     for part, ratio in rec["device_over_events"].items():
         if ratio is None or abs(ratio - 1) > K6_DEVICE_VS_EVENTS:
-            raise AssertionError(f"K6 {part}: device ms over events ms {ratio}, not within "
+            raise AssertionError(f"K6 ({hd}, {dv}) {part}: device ms over events ms {ratio}, not within "
                                  f"{K6_DEVICE_VS_EVENTS:.0%} of 1")
     del q, k, v, do, o, lse, bounds, leaves, lq, lk, lv
     torch.cuda.empty_cache()
@@ -3714,12 +3758,19 @@ def main() -> int:
     note_launches("serve", dict(ops.LAUNCHES))
 
     # ------------------------------------------------------ the families
+    # serve_deepseek's launches apart: its MLA at full width is the one
+    # path of the smoke on K6's 192/128 instance, the other phases' K6
+    # calls are 128/128's
     ops.reset_launches()
     families_small_ref_phase()
     serve_mamba2_phase()
+    families = dict(ops.LAUNCHES)
+    ops.reset_launches()
     serve_deepseek_phase()
+    note_launches("serve_deepseek", dict(ops.LAUNCHES))
+    ops.reset_launches()
     families_full_phase()
-    note_launches("families", dict(ops.LAUNCHES))
+    note_launches("families", {k: n + families[k] for k, n in ops.LAUNCHES.items()})
 
     # ------------------------------------------------ the enc-dec and VLM families
     ops.reset_launches()

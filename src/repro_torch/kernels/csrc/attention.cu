@@ -28,8 +28,9 @@
 //   * mma.sync m16n8k16 bf16 -> f32; each warp owns 32 rows (the forward:
 //     4 warps a block of 128 query rows, so that each B fragment read from
 //     shared memory feeds two products) or 16 (dQ, and dK/dV, whose dK and
-//     dV accumulators take 128 registers a thread); two blocks an SM, so
-//     that one block's softmax overlaps the other's products;
+//     dV accumulators take 128 registers a thread at 128/128); two blocks
+//     an SM, so that one block's softmax overlaps the other's products; the
+//     tile shapes are a trait of the head widths (Tiles below);
 //     operands come from shared memory by ldmatrix, and the probabilities go
 //     from the S accumulator into the next product's A operand in registers
 //     (the accumulator's layout is the A layout);
@@ -53,8 +54,11 @@
 //     against the 5 the backward needs), the price of having no atomics.
 //
 // The head widths (qk, v) are template parameters; the library holds the
-// 128/128 instance. Each entry point launches on the given stream, syncs
-// nothing, allocates nothing and returns cudaGetLastError().
+// 128/128 instance (grouped-query attention at head 128) and the 192/128
+// one (DeepSeek-V3's MLA expanded: a 128-wide key without position and a
+// 64-wide rotary one, values of 128). Each entry point launches on the
+// given stream, syncs nothing, allocates nothing and returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,22 +72,40 @@ template <int WARPS, int MT>
 struct Shape {
   static constexpr int kMt = MT, kThreads = 32 * WARPS, kRows = 16 * MT * WARPS;
 };
-// forward: 128 query rows on 4 warps of 32 rows (each B fragment read from
-// shared memory feeds two m-tiles); dQ: 64 query rows on 4 warps of 16;
-// dK/dV: 64 keys on 4 warps of 16 (its dK and dV accumulators take 128
-// registers a thread). Two blocks an SM each. These are the largest steps
-// at which ptxas spills nothing. Larger ones ran faster on an H100 at
-// Yi-9B's shape but spilled: the forward with 64-key steps took 1.19 ms
-// (72 bytes spilled) against 1.39, dQ on 32-row warps with 32-key steps
-// 1.74 ms (32 bytes) against 1.97, dK/dV with 64-query steps 2.19 ms (12
-// bytes) against 2.50.
-using FwdShape = Shape<4, 2>;
-using DqShape = Shape<4, 1>;
-using DkvShape = Shape<4, 1>;
 constexpr int kQuantum = 32;  // rows of a tile-bounds entry; every tile is a multiple
-constexpr int kFwdKeys = 32;  // forward: keys a step
-constexpr int kDqKeys = 64;   // dQ: keys a step
-constexpr int kDkvRows = 32;  // dK/dV: query rows a step
+constexpr int kThreads = 128;  // every kernel's block (4 warps), two blocks an SM: the launch bounds
+
+// The tile shapes, a trait of the head widths: Fwd, Dq and Dkv the blocks
+// of the three kernels, then the forward's keys a step, dQ's keys a step and
+// dK/dV's query rows a step. Two blocks an SM each. These are the largest
+// steps at which ptxas spills nothing. The forward: 128 query rows on 4
+// warps of 32 rows (each B fragment read from shared memory feeds two
+// m-tiles); dQ: 64 query rows on 4 warps of 16; dK/dV: 64 keys on 4 warps
+// of 16 (its dK and dV accumulators take 128 registers a thread at
+// 128 / 128, 160 at 192 / 128).
+//
+// At 128 / 128, larger steps ran faster on an H100 at Yi-9B's shape but
+// spilled: the forward with 64-key steps took 1.19 ms (72 bytes spilled)
+// against 1.39, dQ on 32-row warps with 32-key steps 1.74 ms (32 bytes)
+// against 1.97, dK/dV with 64-query steps 2.19 ms (12 bytes) against 2.50.
+//
+// Above 128, dQ takes 32 keys a step, so that its wider tiles leave room in
+// shared memory for two blocks an SM. Measured on an H100 at 192 / 128,
+// Moonlight's MLA (b 4, s 4096, 16 heads), each other step slower: dQ with
+// 64-key steps 3.41 ms (one block an SM) against 2.69; the forward with
+// 64-key steps 2.15 ms (28 bytes spilled), on 16-row warps 1.74 (64 keys)
+// or 1.78 (32), against 1.63; dK/dV with 64-query steps 4.51 ms (20 bytes
+// spilled) against 3.07.
+template <int DQK, int DV>
+struct Tiles {
+  using FwdShape = Shape<4, 2>;
+  using DqShape = Shape<4, 1>;
+  using DkvShape = Shape<4, 1>;
+  static constexpr int kFwdKeys = 32;
+  static constexpr int kDqKeys = DQK > 128 ? 32 : 64;
+  static constexpr int kDkvRows = 32;
+};
+
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kInf = __builtin_huge_valf();
@@ -391,12 +413,13 @@ __global__ void __launch_bounds__(kQuantum) attention_bounds_kernel(const Args a
 
 template <int DQK, int DV>
 struct FwdSmem {
+  using T = Tiles<DQK, DV>;
   static constexpr int kQ = 0;  // the query tile, then O's staging
-  static constexpr int kK = kQ + FwdShape::kRows * (DQK > DV ? DQK : DV) * 2;
-  static constexpr int kV = kK + 2 * kFwdKeys * DQK * 2;
-  static constexpr int kPos = kV + 2 * kFwdKeys * DV * 2;  // the key tiles' positions
-  static constexpr int kQpos = kPos + 2 * kFwdKeys * 4;     // the query tile's positions
-  static constexpr int kBytes = kQpos + FwdShape::kRows * 4;
+  static constexpr int kK = kQ + T::FwdShape::kRows * (DQK > DV ? DQK : DV) * 2;
+  static constexpr int kV = kK + 2 * T::kFwdKeys * DQK * 2;
+  static constexpr int kPos = kV + 2 * T::kFwdKeys * DV * 2;  // the key tiles' positions
+  static constexpr int kQpos = kPos + 2 * T::kFwdKeys * 4;     // the query tile's positions
+  static constexpr int kBytes = kQpos + T::FwdShape::kRows * 4;
 };
 
 // the next key tile after kt that some pair of the query tile can see
@@ -409,9 +432,11 @@ __device__ __forceinline__ int next_key_tile(int kt, int nk, const int* bnd, int
 
 // grid (b * H, query tiles): blockIdx.y = 0 is the last query tile
 template <int DQK, int DV>
-__global__ void __launch_bounds__(FwdShape::kThreads, 2) attention_fwd_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 2) attention_fwd_kernel(const Args a) {
   using L = FwdSmem<DQK, DV>;
-  constexpr int BR = FwdShape::kRows, BC = kFwdKeys, MT = FwdShape::kMt, NTH = FwdShape::kThreads;
+  using S = typename Tiles<DQK, DV>::FwdShape;
+  constexpr int BR = S::kRows, BC = Tiles<DQK, DV>::kFwdKeys, MT = S::kMt, NTH = S::kThreads;
+  static_assert(NTH == kThreads, "the launch bounds' block");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = smem_addr(smem);
   int* kpos_s = reinterpret_cast<int*>(smem + L::kPos);
@@ -542,21 +567,24 @@ __global__ void __launch_bounds__(FwdShape::kThreads, 2) attention_fwd_kernel(co
 
 template <int DQK, int DV>
 struct DqSmem {
+  using T = Tiles<DQK, DV>;
   static constexpr int kQ = 0;  // the query tile, then dQ's staging
-  static constexpr int kDo = kQ + DqShape::kRows * DQK * 2;
-  static constexpr int kK = kDo + DqShape::kRows * DV * 2;
-  static constexpr int kV = kK + 2 * kDqKeys * DQK * 2;
-  static constexpr int kPos = kV + 2 * kDqKeys * DV * 2;  // the key tiles' positions
-  static constexpr int kRow = kPos + 2 * kDqKeys * 4;     // the query rows' positions, lse (log2), D
-  static constexpr int kBytes = kRow + DqShape::kRows * 12;
+  static constexpr int kDo = kQ + T::DqShape::kRows * DQK * 2;
+  static constexpr int kK = kDo + T::DqShape::kRows * DV * 2;
+  static constexpr int kV = kK + 2 * T::kDqKeys * DQK * 2;
+  static constexpr int kPos = kV + 2 * T::kDqKeys * DV * 2;  // the key tiles' positions
+  static constexpr int kRow = kPos + 2 * T::kDqKeys * 4;     // the query rows' positions, lse (log2), D
+  static constexpr int kBytes = kRow + T::DqShape::kRows * 12;
 };
 
 // grid (b * H, query tiles), the last query tile first. Writes D =
 // rowsum(dO * O) of its rows, which the dK/dV kernel reads after it.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(DqShape::kThreads, 2) attention_dq_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 2) attention_dq_kernel(const Args a) {
   using L = DqSmem<DQK, DV>;
-  constexpr int BR = DqShape::kRows, BC = kDqKeys, MT = DqShape::kMt, NTH = DqShape::kThreads;
+  using S = typename Tiles<DQK, DV>::DqShape;
+  constexpr int BR = S::kRows, BC = Tiles<DQK, DV>::kDqKeys, MT = S::kMt, NTH = S::kThreads;
+  static_assert(NTH == kThreads, "the launch bounds' block");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = smem_addr(smem);
   int* kpos_s = reinterpret_cast<int*>(smem + L::kPos);
@@ -678,24 +706,27 @@ __global__ void __launch_bounds__(DqShape::kThreads, 2) attention_dq_kernel(cons
 
 template <int DQK, int DV>
 struct DkvSmem {
-  static constexpr int kK = 0;                                 // the key tile, then dK's staging
-  static constexpr int kV = kK + DkvShape::kRows * DQK * 2;    // the value tile, then dV's staging
-  static constexpr int kQ = kV + DkvShape::kRows * DV * 2;
-  static constexpr int kDo = kQ + 2 * kDkvRows * DQK * 2;
-  static constexpr int kLse = kDo + 2 * kDkvRows * DV * 2;
-  static constexpr int kD = kLse + 2 * kDkvRows * 4;
-  static constexpr int kPos = kD + 2 * kDkvRows * 4;
-  static constexpr int kKpos = kPos + 2 * kDkvRows * 4;  // the key tile's positions
-  static constexpr int kBytes = kKpos + DkvShape::kRows * 4;
+  using T = Tiles<DQK, DV>;
+  static constexpr int kK = 0;                                    // the key tile, then dK's staging
+  static constexpr int kV = kK + T::DkvShape::kRows * DQK * 2;    // the value tile, then dV's staging
+  static constexpr int kQ = kV + T::DkvShape::kRows * DV * 2;
+  static constexpr int kDo = kQ + 2 * T::kDkvRows * DQK * 2;
+  static constexpr int kLse = kDo + 2 * T::kDkvRows * DV * 2;
+  static constexpr int kD = kLse + 2 * T::kDkvRows * 4;
+  static constexpr int kPos = kD + 2 * T::kDkvRows * 4;
+  static constexpr int kKpos = kPos + 2 * T::kDkvRows * 4;  // the key tile's positions
+  static constexpr int kBytes = kKpos + T::DkvShape::kRows * 4;
 };
 
 // grid (b * K, key tiles): blockIdx.y = 0 is the first key tile, which a
 // causal sequence's most queries see. Reads D from the dQ kernel.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(DkvShape::kThreads, 2) attention_dkv_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 2) attention_dkv_kernel(const Args a) {
   using L = DkvSmem<DQK, DV>;
-  constexpr int BC = DkvShape::kRows, BR = kDkvRows, NTH = DkvShape::kThreads;
-  static_assert(DkvShape::kMt == 1, "a warp owns one m-tile of keys");
+  using S = typename Tiles<DQK, DV>::DkvShape;
+  constexpr int BC = S::kRows, BR = Tiles<DQK, DV>::kDkvRows, NTH = S::kThreads;
+  static_assert(NTH == kThreads, "the launch bounds' block");
+  static_assert(S::kMt == 1, "a warp owns one m-tile of keys");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = smem_addr(smem);
   float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
@@ -830,6 +861,48 @@ Args make_args(void* const* ptr, const long long* strides, int b, int s, int H, 
   return a;
 }
 
+// the bounds kernel, then the forward (writes bounds, O and lse)
+template <int DQK, int DV>
+cudaError_t fwd_instance(const Args& a, int b, cudaStream_t st) {
+  using S = typename Tiles<DQK, DV>::FwdShape;
+  constexpr int bytes = FwdSmem<DQK, DV>::kBytes;
+  cudaError_t err = opt_in(attention_fwd_kernel<DQK, DV>, bytes);
+  if (err != cudaSuccess) return err;
+  attention_bounds_kernel<<<dim3(a.n_bnd, b), kQuantum, 0, st>>>(a);
+  attention_fwd_kernel<DQK, DV><<<dim3(b * a.H, (a.s + S::kRows - 1) / S::kRows), S::kThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// dQ (and D), then dK and dV
+template <int DQK, int DV>
+cudaError_t bwd_instance(const Args& a, int b, cudaStream_t st) {
+  using Q = typename Tiles<DQK, DV>::DqShape;
+  using KV = typename Tiles<DQK, DV>::DkvShape;
+  constexpr int dq_bytes = DqSmem<DQK, DV>::kBytes, dkv_bytes = DkvSmem<DQK, DV>::kBytes;
+  cudaError_t err = opt_in(attention_dq_kernel<DQK, DV>, dq_bytes);
+  if (err == cudaSuccess) err = opt_in(attention_dkv_kernel<DQK, DV>, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  attention_dq_kernel<DQK, DV><<<dim3(b * a.H, (a.s + Q::kRows - 1) / Q::kRows), Q::kThreads, dq_bytes, st>>>(a);
+  attention_dkv_kernel<DQK, DV>
+      <<<dim3(b * a.K, (a.s + KV::kRows - 1) / KV::kRows), KV::kThreads, dkv_bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DQK, int DV>
+struct Widths {
+  static constexpr int kQk = DQK, kV = DV;
+};
+
+// f(Widths<qk, v>()) for the instance the library holds at head widths
+// (d_qk, d_v), cudaErrorInvalidValue at any other: the one table of the
+// instances (ops.ATTENTION_HEAD_DIMS)
+template <typename F>
+cudaError_t with_instance(int d_qk, int d_v, F f) {
+  if (d_qk == 128 && d_v == 128) return f(Widths<128, 128>());
+  if (d_qk == 192 && d_v == 128) return f(Widths<192, 128>());
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Pointers (12, as a host array): q, k, v, positions, bounds, out (O), lse,
@@ -840,31 +913,21 @@ Args make_args(void* const* ptr, const long long* strides, int b, int s, int H, 
 // forward: the bounds kernel, then the forward (writes bounds, O and lse)
 extern "C" int attention_fwd_launch(void* const* ptr, const long long* strides, int b, int s, int H, int K,
                                     int window, int d_qk, int d_v, float scale, void* stream) {
-  if (d_qk != 128 || d_v != 128 || b <= 0 || s <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0 || s <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(ptr, strides, b, s, H, K, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  attention_bounds_kernel<<<dim3(a.n_bnd, b), kQuantum, 0, st>>>(a);
-  constexpr int bytes = FwdSmem<128, 128>::kBytes;
-  cudaError_t err = opt_in(attention_fwd_kernel<128, 128>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_fwd_kernel<128, 128>
-      <<<dim3(b * H, (s + FwdShape::kRows - 1) / FwdShape::kRows), FwdShape::kThreads, bytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_instance(d_qk, d_v, [&](auto w) {
+    return fwd_instance<decltype(w)::kQk, decltype(w)::kV>(a, b, st);
+  }));
 }
 
 // backward: dQ (and D), then dK and dV; reads the forward's bounds and lse
 extern "C" int attention_bwd_launch(void* const* ptr, const long long* strides, int b, int s, int H, int K,
                                     int window, int d_qk, int d_v, float scale, void* stream) {
-  if (d_qk != 128 || d_v != 128 || b <= 0 || s <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0 || s <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(ptr, strides, b, s, H, K, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int dq_bytes = DqSmem<128, 128>::kBytes, dkv_bytes = DkvSmem<128, 128>::kBytes;
-  cudaError_t err = opt_in(attention_dq_kernel<128, 128>, dq_bytes);
-  if (err == cudaSuccess) err = opt_in(attention_dkv_kernel<128, 128>, dkv_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_dq_kernel<128, 128>
-      <<<dim3(b * H, (s + DqShape::kRows - 1) / DqShape::kRows), DqShape::kThreads, dq_bytes, st>>>(a);
-  attention_dkv_kernel<128, 128>
-      <<<dim3(b * K, (s + DkvShape::kRows - 1) / DkvShape::kRows), DkvShape::kThreads, dkv_bytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_instance(d_qk, d_v, [&](auto w) {
+    return bwd_instance<decltype(w)::kQk, decltype(w)::kV>(a, b, st);
+  }));
 }

@@ -53,8 +53,9 @@ WEIGHT_UPDATE_TILE_N = 128
 ADAMW_MAX_LEAVES = 48
 #: K5's parameter/grad and state dtypes (all four pairs are compiled)
 _ADAMW_DTYPES = (torch.float32, torch.bfloat16)
-#: K6's head widths (qk, v): the instances the library holds
-ATTENTION_HEAD_DIMS = ((128, 128),)
+#: K6's head widths (qk, v): the instances the library holds (grouped-query
+#: attention at head 128; DeepSeek-V3's MLA expanded, 128 + 64 rotary)
+ATTENTION_HEAD_DIMS = ((128, 128), (192, 128))
 #: positions one entry of K6's tile bounds covers (``kQuantum`` in ``attention.cu``)
 ATTENTION_BOUNDS_ROWS = 32
 #: shared memory one block may use on an H100 (232 448 B, opted in above 48 KB)

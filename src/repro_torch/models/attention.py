@@ -13,15 +13,20 @@ scalar is broadcast to (b,), so scalar-pos decode is the per-row write
 with every row at the same position, bit for bit.
 
 Attention is the reference's two products around a masked float32
-softmax (``_sdpa``), so that the port and the reference compute the same
-steps, everywhere but in one place: ``gqa_full`` on CUDA bf16 tensors at a
-head width K6 is built for (``kernels.ops.ATTENTION_HEAD_DIMS``, 128)
-runs K6 (``kernels/csrc/attention.cu``), the same function with the
-scores kept on the SM, its backward a kernel too (:class:`_K6`). K6
-keeps the products in float32 where ``_sdpa`` rounds the scores to bf16
-before the scale. CPU tensors, other head widths and dtypes, decode and
-cross-attention keep ``_sdpa``. The tracer counts each ``gqa_full`` by
-route (``attention_calls``, sites ``kernel`` and ``plain``).
+softmax (``_sdpa``, and MLA's absorbed form ``_mla_attend``), so that the
+port and the reference compute the same steps, everywhere but in two
+places: ``gqa_full`` on CUDA bf16 tensors at a head width K6 is built for
+(``kernels.ops.ATTENTION_HEAD_DIMS``: 128) runs K6
+(``kernels/csrc/attention.cu``), the same function with the scores kept
+on the SM, its backward a kernel too (:class:`_K6`); and ``mla_full`` on
+CUDA bf16 tensors at MLA's widths K6 holds (192 = 128 + 64 rotary, values
+128: DeepSeek-V3's) up-projects the latent to each head's key and value
+and runs K6 on them. K6 keeps the products in float32 where ``_sdpa``
+rounds the scores to bf16 before the scale. CPU tensors, other widths and
+dtypes, decode and cross-attention keep the plain forms. The tracer
+counts each call by route (``attention_calls`` for ``gqa_full``,
+``mla_attend_calls`` for ``mla_full`` and ``mla_decode``; sites
+``kernel`` and ``plain``).
 """
 
 from __future__ import annotations
@@ -72,11 +77,16 @@ class _K6(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _k6_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+def _k6_holds(tensors: tuple, d_qk: int, d_v: int) -> bool:
     """K6 runs on what it was built for, as its input shows: CUDA bf16
-    tensors at head widths it holds."""
-    return (q.is_cuda and all(t.dtype == torch.bfloat16 for t in (q, k, v))
-            and (q.shape[-1], v.shape[-1]) in ops.ATTENTION_HEAD_DIMS)
+    tensors, at head widths (qk, v) it holds."""
+    return (tensors[0].is_cuda and all(t.dtype == torch.bfloat16 for t in tensors)
+            and (d_qk, d_v) in ops.ATTENTION_HEAD_DIMS)
+
+
+def _k6_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """K6 takes ``gqa_full``'s q, k, v (:func:`_k6_holds`)."""
+    return _k6_holds((q, k, v), q.shape[-1], v.shape[-1])
 
 
 def init_gqa(generator, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) -> dict:
@@ -214,6 +224,8 @@ def init_mla(generator, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) 
 
 
 def _mla_q(params, x, positions, cfg: ArchConfig):
+    """The query's two parts (b, s, H, nope) and (b, s, H, rope), the
+    second rotated."""
     b, s, _ = x.shape
     H = cfg.num_heads
     nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -227,9 +239,12 @@ def _mla_q(params, x, positions, cfg: ArchConfig):
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
-    # absorb the key up-projection into the query -> latent space
-    q_lat = torch.einsum("bshn,hnr->bshr", q_nope, params["wkv_b_k"].to(x.dtype))
-    return q_lat, q_rope
+    return q_nope, q_rope
+
+
+def _mla_absorb(params, q_nope, dtype):
+    """The key up-projection absorbed into the query: its latent (b, s, H, r)."""
+    return torch.einsum("bshn,hnr->bshr", q_nope, params["wkv_b_k"].to(dtype))
 
 
 def _mla_kv_latent(params, x, positions, cfg: ArchConfig):
@@ -255,14 +270,43 @@ def _mla_attend(params, q_lat, q_rope, c_kv, k_rope, mask, cfg: ArchConfig, dtyp
     return torch.matmul(out, params["wo"].to(dtype))
 
 
+def _mla_k6_takes(q_nope: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor, wkv_b_v: torch.Tensor) -> bool:
+    """K6 takes MLA expanded (:func:`_k6_holds`): keys nope + rope wide,
+    values as wide as ``wkv_b_v``'s up-projection."""
+    return _k6_holds((q_nope, q_rope, c_kv), q_nope.shape[-1] + q_rope.shape[-1], wkv_b_v.shape[-1])
+
+
+def _mla_attend_k6(params, q_nope, q_rope, c_kv, k_rope, positions, cfg: ArchConfig, dtype):
+    """MLA expanded into H heads of plain attention through K6: the latent
+    up-projected to each head's key without position, beside the one
+    rotary key, and to its value, in ``dtype``; then K6 over q (b, s, H,
+    nope + rope), k (b, s, H, nope + rope), v (b, s, H, v), and ``wo``."""
+    b, s, H, nd = q_nope.shape
+    r, vd = c_kv.shape[-1], cfg.v_head_dim
+    k_nope = torch.matmul(c_kv, params["wkv_b_k"].to(dtype).permute(2, 0, 1).reshape(r, H * nd)).view(b, s, H, nd)
+    v = torch.matmul(c_kv, params["wkv_b_v"].to(dtype).permute(1, 0, 2).reshape(r, H * vd)).view(b, s, H, vd)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.unsqueeze(2).expand(b, s, H, k_rope.shape[-1])], -1)
+    with trace.span("mla.attend"):
+        out = _K6.apply(q, k, v, positions, None, (nd + q_rope.shape[-1]) ** -0.5)
+    return torch.matmul(out.reshape(b, s, H * vd), params["wo"].to(dtype))
+
+
 def mla_full(params: dict, x: torch.Tensor, positions: torch.Tensor,
              cfg: ArchConfig) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal MLA. Returns (out, (c_kv, k_rope)): the latent
-    cache entries, so prefill can seed the cache."""
-    q_lat, q_rope = _mla_q(params, x, positions, cfg)
+    cache entries, so prefill can seed the cache. Where K6 takes the input
+    (:func:`_mla_k6_takes`) it attends expanded through K6
+    (:func:`_mla_attend_k6`), else absorbed (:func:`_mla_attend`)."""
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
     c_kv, k_rope = _mla_kv_latent(params, x, positions, cfg)
-    mask = _causal_window_mask(positions, positions, None)
-    out = _mla_attend(params, q_lat, q_rope, c_kv, k_rope, mask, cfg, x.dtype)
+    if _mla_k6_takes(q_nope, q_rope, c_kv, params["wkv_b_v"]):
+        trace.count("mla_attend_calls", 1, "kernel")
+        out = _mla_attend_k6(params, q_nope, q_rope, c_kv, k_rope, positions, cfg, x.dtype)
+    else:
+        trace.count("mla_attend_calls", 1, "plain")
+        mask = _causal_window_mask(positions, positions, None)
+        out = _mla_attend(params, _mla_absorb(params, q_nope, x.dtype), q_rope, c_kv, k_rope, mask, cfg, x.dtype)
     return out, (c_kv, k_rope)
 
 
@@ -281,7 +325,8 @@ def mla_decode(
     b = x.shape[0]
     pos_b = _pos_rows(pos, b, x.device)
     positions = pos_b.unsqueeze(1)
-    q_lat, q_rope = _mla_q(params, x, positions, cfg)
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    q_lat = _mla_absorb(params, q_nope, x.dtype)
     c_new, r_new = _mla_kv_latent(params, x, positions, cfg)
     rows = torch.arange(b, device=x.device)
     idx = (rows, pos_b.long())
@@ -294,6 +339,7 @@ def mla_decode(
     S = cache_ckv.shape[1]
     kpos = torch.arange(S, dtype=torch.int32, device=x.device).expand(b, S)
     mask = _causal_window_mask(positions, kpos, None)
+    trace.count("mla_attend_calls", 1, "plain")
     out = _mla_attend(params, q_lat, q_rope, cache_ckv.to(x.dtype), cache_krope.to(x.dtype), mask, cfg,
                       x.dtype)
     return out, cache_ckv, cache_krope

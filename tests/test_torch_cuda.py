@@ -1225,16 +1225,18 @@ def _chip_smoke():
 
 _smoke = _chip_smoke()
 _K6_CASES = list(_smoke.K6_CASES)
+#: every instance's checks: (head widths qk and v, b, s, H, K, window, positions)
+_K6_ALL = [widths + case for widths, cases, _ in _smoke.K6_INSTANCES for case in cases]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,H,K,window,kind", _K6_CASES)
-def test_cuda_attention_matches_float32_sdpa(cuda_device, b, s, H, K, window, kind):
+@pytest.mark.parametrize("hd,dv,b,s,H,K,window,kind", _K6_ALL)
+def test_cuda_attention_matches_float32_sdpa(cuda_device, hd, dv, b, s, H, K, window, kind):
     """K6's O and its dq, dk, dv within ``chip_smoke.K6_TOL`` of
     ``_sdpa`` in float32, block by block (``chip_smoke.k6_block_errors``), one
-    forward and one backward launch a call."""
+    forward and one backward launch a call, at each instance's widths."""
     pos = _smoke.k6_positions(kind, b, s, cuda_device)
-    q, k, v, do = _smoke.k6_inputs(b, s, H, K, cuda_device)
+    q, k, v, do = _smoke.k6_inputs(b, s, H, K, cuda_device, hd=hd, dv=dv)
     want = _smoke.k6_run(_smoke.k6_plain(pos, window), q, k, v, do, torch.float32)
     tops.reset_launches()
     got = _smoke.k6_run(_smoke.k6_kernel(pos, window), q, k, v, do, torch.bfloat16)
@@ -1245,13 +1247,14 @@ def test_cuda_attention_matches_float32_sdpa(cuda_device, b, s, H, K, window, ki
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,H,K,window,kind", [_K6_CASES[0], _K6_CASES[4], _K6_CASES[7]])
-def test_cuda_attention_repeats_bit_for_bit(cuda_device, b, s, H, K, window, kind):
+@pytest.mark.parametrize("hd,dv,b,s,H,K,window,kind", [(128, 128) + _K6_CASES[i] for i in (0, 4, 7)]
+                         + [(192, 128) + case for case in _smoke.K6_MLA_REPEATED])
+def test_cuda_attention_repeats_bit_for_bit(cuda_device, hd, dv, b, s, H, K, window, kind):
     """The forward and the backward give the same bits on a second call:
     no float atomics; a KV head's gradients sum its G query heads in a
     fixed order."""
     pos = _smoke.k6_positions(kind, b, s, cuda_device)
-    q, k, v, do = _smoke.k6_inputs(b, s, H, K, cuda_device, seed=1)
+    q, k, v, do = _smoke.k6_inputs(b, s, H, K, cuda_device, seed=1, hd=hd, dv=dv)
     runs = [_smoke.k6_run(_smoke.k6_kernel(pos, window), q, k, v, do, torch.bfloat16) for _ in range(2)]
     assert all(torch.equal(x, y) for x, y in zip(*runs))
 
@@ -1350,3 +1353,153 @@ def test_cuda_gqa_full_routes_by_its_input(cuda_device, hd, dtype, route):
         q, k, v = _gqa_qkv(params, x, pos, cfg)
         want = _sdpa(q.reshape(2, 200, 2, 2, hd), k, v, _causal_window_mask(pos, pos, None), hd ** -0.5)
         assert torch.equal(out, torch.matmul(want.reshape(2, 200, 4 * hd), params["wo"]))
+
+
+# ---------------------------------------------------------------------------
+# K6's (192, 128) instance and MLA's route to it (mla_full on CUDA bf16 at
+# DeepSeek-V3's and Moonlight's widths: keys 128 + 64 rotary, values 128)
+# ---------------------------------------------------------------------------
+
+def _moonlight_mla():
+    """Moonlight-16B-A3B's MLA (``bench/configs/moonlight_l5.json``): d
+    2048, 16 heads, latent 512, keys 128 + 64 rotary, values 128."""
+    from repro_torch.models.config import ArchConfig
+
+    return ArchConfig(name="moonlight-mla", arch_type="moe", num_layers=1, d_model=2048, num_heads=16,
+                      num_kv_heads=16, d_ff=64, vocab=100, attention="mla", q_lora_rank=0, kv_lora_rank=512,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, rope_theta=50000.0,
+                      compute_dtype="bfloat16")
+
+
+def _traced(fn):
+    """fn() with the tracer on: (its result, the counters)."""
+    from repro_torch import trace
+
+    trace.disable()
+    trace.collect()
+    trace.enable()
+    try:
+        out = fn()
+        return out, trace.collect()["counters"]
+    finally:
+        trace.disable()
+
+
+def _mla_errors(got, want, heads: int = 5):
+    """[tensors of (b, s, heads, width) or (b, s, width) (the first
+    ``heads``), then weight gradients] against float32 ones: block errors
+    (``chip_smoke.k6_block_errors``) of the first, a 3-D one read as one
+    head; each weight gradient's largest error over its largest value."""
+    rows = [[t if t.dim() == 4 else t.unsqueeze(2) for t in ts[:heads]] for ts in (got, want)]
+    return (_smoke.k6_block_errors(*rows)
+            + [float((g.float() - w).abs().max() / w.abs().max()) for g, w in zip(got[heads:], want[heads:])])
+
+
+#: the MLA layer's limits (block errors and weight gradients' largest error
+#: over their largest value, against float32): ``chip_smoke.K6_TOL``, and
+#: twice it for the query's gradients, where a query's dq cancels and dO
+#: reaches K6 through ``wo``'s bf16 product, and for the whole bf16 layer,
+#: whose projections round to bf16 too. The card read at most 0.0120 (dq)
+#: through K6; the absorbed form in bf16 read 0.0227 and 0.0285 for dq and
+#: 0.0136 for the whole layer's dx.
+_MLA_DQ_TOL = _MLA_LAYER_TOL = 2 * _smoke.K6_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_mla_full_takes_k6_at_moonlights_widths(cuda_device):
+    """An MLA layer at Moonlight's widths in bf16 on the card (``mla_full``,
+    forward and backward) attends expanded through K6: counted at
+    ``kernel``, one forward and one backward launch; its output and every
+    gradient repeat bit for bit; against the same layer in float32 (the
+    absorbed route), its output's and input's block errors and each weight
+    gradient's within ``_MLA_LAYER_TOL``. Its attention from the layer's
+    own bf16 query and latent (``_mla_attend_k6``) against the absorbed
+    ``_mla_attend`` in float32 from the same values: the block errors of the
+    output and of the rotary key's and latent's gradients, and the weight
+    gradients of ``wkv_b_k``, ``wkv_b_v`` and ``wo``, within
+    ``chip_smoke.K6_TOL``; the query's gradients within ``_MLA_DQ_TOL``. The
+    absorbed form's own errors in bf16 are printed beside them, a yardstick
+    and no limit."""
+    from repro_torch.models import attention as attn
+
+    cfg = _moonlight_mla()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = attn.init_mla(gen, cfg, torch.float32, cuda_device)
+    b, s = 2, 1024
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=cuda_device).to(torch.bfloat16)
+    cot = torch.randn((b, s, cfg.d_model), generator=gen, device=cuda_device)
+    pos = _smoke.k6_positions("index", b, s, cuda_device)
+
+    def layer(dtype):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        xx = x.to(dtype).clone().requires_grad_(True)
+        out, _ = attn.mla_full(leaves, xx, pos, cfg)
+        (out.float() * cot).sum().backward()
+        return [out.detach(), xx.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    tops.reset_launches()
+    got, counts = _traced(lambda: layer(torch.bfloat16))
+    assert counts["mla_attend_calls"] == {"kernel": 1}
+    assert (tops.LAUNCHES["attention_fwd"], tops.LAUNCHES["attention_bwd"]) == (1, 1)
+    assert all(torch.equal(a, c) for a, c in zip(got, layer(torch.bfloat16)))
+    whole = _mla_errors(got, layer(torch.float32), heads=2)
+    print(f"MLA layer through K6 against float32: {['%.4f' % e for e in whole]}")
+    assert all(e <= _MLA_LAYER_TOL for e in whole), whole
+
+    with torch.no_grad():
+        q_nope, q_rope = attn._mla_q(params, x, pos, cfg)
+        c_kv, k_rope = attn._mla_kv_latent(params, x, pos, cfg)
+    mask = attn._causal_window_mask(pos, pos, None)
+    weights = ("wkv_b_k", "wkv_b_v", "wo")
+
+    def attend(dtype, k6):
+        ins = [t.to(dtype).clone().requires_grad_(True) for t in (q_nope, q_rope, c_kv, k_rope)]
+        w = {k: params[k].clone().requires_grad_(True) for k in weights}
+        if k6:
+            out = attn._mla_attend_k6(w, *ins, pos, cfg, dtype)
+        else:
+            out = attn._mla_attend(w, attn._mla_absorb(w, ins[0], dtype), *ins[1:], mask, cfg, dtype)
+        (out.float() * cot).sum().backward()
+        return [out.detach()] + [t.grad for t in ins] + [w[k].grad for k in weights]
+
+    want = attend(torch.float32, False)
+    names = ["out", "dq_nope", "dq_rope", "dc_kv", "dk_rope"] + [f"d{k}" for k in weights]
+    err = dict(zip(names, _mla_errors(attend(torch.bfloat16, True), want)))
+    plain = dict(zip(names, _mla_errors(attend(torch.bfloat16, False), want)))
+    print(f"MLA attention through K6 {err}; absorbed in bf16 {plain}")
+    limits = {n: _MLA_DQ_TOL if n.startswith("dq_") else _smoke.K6_TOL for n in names}
+    assert all(err[n] <= limits[n] for n in names), (err, limits)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_prefill_through_k6_matches_decode(cuda_device):
+    """A 16-token prompt at Moonlight's widths in bf16: ``mla_full``
+    through K6 (counted at ``kernel``) against teacher-forced
+    ``mla_decode`` from an empty latent cache (absorbed, counted at
+    ``plain``), at the reference's 2e-2 of
+    ``test_cuda_family_decode_matches_full_forward``."""
+    from repro_torch.models import attention as attn
+
+    cfg = _moonlight_mla()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    params = attn.init_mla(gen, cfg, torch.float32, cuda_device)
+    x = torch.randn((1, 16, cfg.d_model), generator=gen, device=cuda_device).to(torch.bfloat16)
+    pos = _smoke.k6_positions("index", 1, 16, cuda_device)
+
+    def both():
+        with torch.no_grad():
+            full, _ = attn.mla_full(params, x, pos, cfg)
+            ckv = torch.zeros((1, 16, cfg.kv_lora_rank), dtype=torch.bfloat16, device=cuda_device)
+            kr = torch.zeros((1, 16, cfg.qk_rope_head_dim), dtype=torch.bfloat16, device=cuda_device)
+            steps = []
+            for i in range(16):
+                out, ckv, kr = attn.mla_decode(params, x[:, i:i + 1], ckv, kr, i, cfg)
+                steps.append(out[:, 0])
+        return full, steps
+
+    (full, steps), counts = _traced(both)
+    assert counts["mla_attend_calls"] == {"kernel": 1, "plain": 16}
+    for i, step in enumerate(steps):
+        torch.testing.assert_close(step, full[:, i], rtol=2e-2, atol=2e-2)

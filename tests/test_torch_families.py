@@ -48,7 +48,7 @@ from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import transformer as ttrans  # noqa: E402
-from repro_torch.models.config import layer_segments  # noqa: E402
+from repro_torch.models.config import ArchConfig, layer_segments  # noqa: E402
 from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from test_torch_models import GRAD, close, config_fields, port_cfg, t  # noqa: E402
@@ -330,6 +330,110 @@ class TestMLA:
             assert all(torch.equal(a, w) for a, w in zip(vec, got))
             at_int = tattn.mla_decode(tp, t(x), t(ckv), t(kr), 6, cfg)
             assert all(torch.equal(a, w) for a, w in zip(at_int, got))
+
+
+# ---------------------------------------------------------------------------
+# MLA's route to K6: expanded on CUDA bf16 at widths K6 holds, absorbed
+# everywhere else (models/attention.py: _mla_k6_takes, _mla_attend_k6)
+# ---------------------------------------------------------------------------
+
+#: Moonlight-16B-A3B's MLA (``bench/configs/moonlight_l5.json``): d 2048,
+#: 16 heads, latent 512, keys 128 + 64 rotary, values 128, no q-LoRA
+MOONLIGHT_MLA = ArchConfig(name="moonlight-mla", arch_type="moe", num_layers=1, d_model=2048, num_heads=16,
+                           num_kv_heads=16, d_ff=64, vocab=100, attention="mla", q_lora_rank=0, kv_lora_rank=512,
+                           qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, rope_theta=50000.0)
+
+
+def _plain_k6(q, k, v, positions, window, scale):
+    """K6's node as ``_sdpa`` computes it (in q's dtype), for its place."""
+    b, s, H, hd = q.shape
+    mask = tattn._causal_window_mask(positions, positions, window)
+    return tattn._sdpa(q.reshape(b, s, H, 1, hd), k, v, mask, scale).reshape(b, s, H, v.shape[-1])
+
+
+@pytest.mark.parametrize("s", [1, 17, 64])
+def test_mla_expanded_glue_equals_the_absorbed_form(s, monkeypatch):
+    """The kernel route's glue (the latent up-projected to each head's key
+    and value, the rotary key beside it, the scale, ``wo``) with float32
+    ``_sdpa`` in K6's place: the absorbed ``_mla_attend``'s output, and
+    the same gradients of the input and of every weight, to 1e-5 at
+    Moonlight's widths."""
+    cfg = MOONLIGHT_MLA
+    gen = torch.Generator().manual_seed(0)
+    params = tattn.init_mla(gen, cfg, torch.float32)
+    params["kv_norm"] = torch.randn(params["kv_norm"].shape, generator=gen) * 0.1
+    x = torch.randn((2, s, cfg.d_model), generator=gen) * 0.5
+    cot = torch.randn((2, s, cfg.d_model), generator=gen)
+    pos = torch.arange(s, dtype=torch.int32).expand(2, s)
+    monkeypatch.setattr(tattn._K6, "apply", _plain_k6)
+
+    def run(expanded):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xx = x.clone().requires_grad_(True)
+        q_nope, q_rope = tattn._mla_q(leaves, xx, pos, cfg)
+        c_kv, k_rope = tattn._mla_kv_latent(leaves, xx, pos, cfg)
+        if expanded:
+            out = tattn._mla_attend_k6(leaves, q_nope, q_rope, c_kv, k_rope, pos, cfg, xx.dtype)
+        else:
+            mask = tattn._causal_window_mask(pos, pos, None)
+            out = tattn._mla_attend(leaves, tattn._mla_absorb(leaves, q_nope, xx.dtype), q_rope, c_kv, k_rope,
+                                    mask, cfg, xx.dtype)
+        (out * cot).sum().backward()
+        return [out.detach(), xx.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    for got, want in zip(run(True), run(False)):
+        close(got, want, dict(rtol=1e-5, atol=1e-5 * float(want.abs().max())))
+
+
+_MLA_ROUTES = {  # (on the card, dtype, (nope, rope, v), the route)
+    "cpu_bf16": (False, torch.bfloat16, (128, 64, 128), False),
+    "cuda_float32": (True, torch.float32, (128, 64, 128), False),
+    "cuda_float16": (True, torch.float16, (128, 64, 128), False),
+    "cuda_bf16_reduced_widths": (True, torch.bfloat16, (32, 16, 32), False),
+    "cuda_bf16_other_values": (True, torch.bfloat16, (128, 64, 96), False),
+    "cuda_bf16_moonlight": (True, torch.bfloat16, (128, 64, 128), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MLA_ROUTES))
+def test_mla_route_reads_its_input(case, monkeypatch):
+    """``_mla_k6_takes`` reads only its input: K6 for CUDA bf16 tensors at
+    (nope + rope, v) = (192, 128), the absorbed form for CPU tensors,
+    other dtypes, the reduced configs' 48 / 32 and other value widths
+    (the card stood in for by ``is_cuda``; no library is built)."""
+    cuda, dt, (nd, rd, vd), want = _MLA_ROUTES[case]
+    if cuda:
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q_nope, q_rope = torch.zeros((1, 3, 2, nd), dtype=dt), torch.zeros((1, 3, 2, rd), dtype=dt)
+    c_kv, wkv_b_v = torch.zeros((1, 3, 32), dtype=dt), torch.zeros((2, 32, vd))
+    assert tattn._mla_k6_takes(q_nope, q_rope, c_kv, wkv_b_v) is want
+
+
+def test_mla_on_the_cpu_stays_absorbed_and_is_counted():
+    """On the CPU ``mla_full`` and ``mla_decode`` keep the absorbed form,
+    the same bits as ``_mla_attend`` on the absorbed query, and the tracer
+    counts each call at ``plain``."""
+    from repro_torch import trace
+
+    cfg = dataclasses.replace(MOONLIGHT_MLA, compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(1)
+    params = tattn.init_mla(gen, cfg, torch.float32)
+    x = (torch.randn((2, 9, cfg.d_model), generator=gen) * 0.5).to(torch.bfloat16)
+    pos = torch.arange(9, dtype=torch.int32).expand(2, 9)
+    trace.disable()
+    trace.collect()
+    trace.enable()
+    try:
+        out, (c_kv, k_rope) = tattn.mla_full(params, x, pos, cfg)
+        tattn.mla_decode(params, x[:, :1], c_kv, k_rope, 3, cfg)
+        counts = trace.collect()["counters"]
+    finally:
+        trace.disable()
+    assert counts["mla_attend_calls"] == {"plain": 2}
+    q_nope, q_rope = tattn._mla_q(params, x, pos, cfg)
+    want = tattn._mla_attend(params, tattn._mla_absorb(params, q_nope, x.dtype), q_rope, c_kv, k_rope,
+                             tattn._causal_window_mask(pos, pos, None), cfg, x.dtype)
+    assert torch.equal(out, want)
 
 
 # ---------------------------------------------------------------------------

@@ -779,6 +779,7 @@ _K6_REFUSED = {
     "float16_k": (lambda a: (a[0], a[1].half()) + a[2:], TypeError, "k must be bfloat16"),
     "head_64": (lambda a: _k6_args(hd=64) + a[5:], ValueError, "no instance for head widths"),
     "head_96_values": (lambda a: _k6_args(dv=96) + a[5:], ValueError, "no instance for head widths"),
+    "head_192_values_192": (lambda a: _k6_args(hd=192) + a[5:], ValueError, "no instance for head widths"),
     "misaligned_start": (lambda a: (_k6_misaligned(a[0]),) + a[1:], ValueError, "16-byte aligned"),
     "strided_width": (lambda a: (a[0],) + (torch.empty(2, 5, 2, 256, dtype=torch.bfloat16)[..., ::2],) + a[2:],
                       ValueError, "contiguous last dimension"),
@@ -839,22 +840,42 @@ def test_attention_bounds_shape_covers_every_position(s, tiles):
     assert (tiles - 1) * tops.ATTENTION_BOUNDS_ROWS < s <= tiles * tops.ATTENTION_BOUNDS_ROWS
 
 
+def _c_int(expr: str, **names) -> int:
+    """An integer constant expression of ``attention.cu`` (names, numbers,
+    comparisons and one ``a ? b : c``) evaluated at ``names``."""
+    m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", expr.strip())
+    if m:
+        return _c_int(m.group(2) if _c_int(m.group(1), **names) else m.group(3), **names)
+    assert re.fullmatch(r"[\w\s<>=!+\-*/()]+", expr), expr
+    return int(eval(expr, {"__builtins__": {}}, names))
+
+
 def test_attention_constants_are_the_kernels():
-    """The bounds' rows are ``attention.cu``'s quantum, every tile of the
-    kernels is a whole number of them, and the library holds an instance
-    (forward and backward) of each head-width pair the wrapper routes."""
+    """The bounds' rows are ``attention.cu``'s quantum; the tile shapes
+    (``Tiles``) are one trait of the head widths, and at each pair the
+    library holds every tile of the kernels is a whole number of quanta and
+    every block is the launch bounds' block; the one table of instances
+    (``with_instance``) holds exactly the head-width pairs the wrapper
+    routes."""
     src = (Path(tops.__file__).parent / "csrc" / "attention.cu").read_text()
-    consts = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(r"^constexpr int (k\w+) = (\d+);", src, re.M)}
     assert consts["kQuantum"] == tops.ATTENTION_BOUNDS_ROWS
-    for name in ("kFwdKeys", "kDqKeys", "kDkvRows"):
-        assert consts[name] % consts["kQuantum"] == 0, name
-    shapes = {m.group(1): 16 * int(m.group(2)) * int(m.group(3))
-              for m in re.finditer(r"using (\w+)Shape = Shape<(\d+), (\d+)>;", src)}
-    assert set(shapes) == {"Fwd", "Dq", "Dkv"}
-    assert all(rows % consts["kQuantum"] == 0 for rows in shapes.values()), shapes
+    traits = re.findall(r"template <int DQK, int DV>\nstruct Tiles \{(.*?)\n\};", src, re.S)
+    assert len(traits) == 1 and "struct Tiles<" not in src
+    steps = dict(re.findall(r"static constexpr int (k\w+) = ([^;]+);", traits[0]))
+    assert set(steps) == {"kFwdKeys", "kDqKeys", "kDkvRows"}, steps
+    shapes = {m.group(1): (int(m.group(2)), int(m.group(3)))
+              for m in re.finditer(r"using (\w+)Shape = Shape<(\d+), (\d+)>;", traits[0])}
+    assert set(shapes) == {"Fwd", "Dq", "Dkv"}, shapes
+    assert all(16 * w * mt % consts["kQuantum"] == 0 for w, mt in shapes.values()), shapes
+    assert all(32 * w == consts["kThreads"] for w, _ in shapes.values()), shapes
     for d_qk, d_v in tops.ATTENTION_HEAD_DIMS:
-        for kernel in ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel"):
-            assert f"{kernel}<{d_qk}, {d_v}>" in src
+        at = {k: _c_int(e, DQK=d_qk, DV=d_v) for k, e in steps.items()}
+        assert all(n > 0 and n % consts["kQuantum"] == 0 for n in at.values()), (d_qk, d_v, at)
+    table = re.search(r"cudaError_t with_instance\(.*?\n\}", src, re.S).group(0)
+    held = {(int(a), int(b)) for a, b in re.findall(r"f\(Widths<(\d+), (\d+)>\(\)\)", table)}
+    assert held == set(tops.ATTENTION_HEAD_DIMS)
+    assert src.count("with_instance(d_qk, d_v,") == 2  # the forward's launcher and the backward's
     # deterministic: no atomic function and no PTX atomic or reduction
     assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", src)
 
