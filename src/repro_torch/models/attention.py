@@ -106,9 +106,10 @@ def _gqa_qkv(params, x, positions, cfg: ArchConfig):
     q = torch.matmul(x, params["wq"].to(x.dtype)).reshape(b, s, H, hd)
     k = torch.matmul(x, params["wk"].to(x.dtype)).reshape(b, s, K, hd)
     v = torch.matmul(x, params["wv"].to(x.dtype)).reshape(b, s, K, hd)
-    cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.rope:  # Nemotron-H's attention takes no positions
+        cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     return q, k, v
 
 

@@ -1,8 +1,10 @@
 """Architecture config schema + the layer-pattern machinery; a copy of
 ``src/repro/models/config.py`` (framework-neutral), kept here so the
-port imports nothing of the reference, plus the port's own MoE fields
-(DeepSeek-V3's router, drop-free dispatch and one chip's share of the
-experts), whose defaults give the reference's behaviour.
+port imports nothing of the reference, plus the port's own fields, whose
+defaults give the reference's behaviour: DeepSeek-V3's router, drop-free
+dispatch and one chip's share of the experts; and Nemotron-H's stack of
+single-mixer blocks (a layer pattern), grouped Mamba2, relu^2 experts and
+attention without positions.
 
 An ``ArchConfig`` fully determines a model. Heterogeneous stacks
 (gemma3's 5 local : 1 global, deepseek's first-k-dense, zamba2's shared
@@ -25,6 +27,9 @@ class LayerSpec:
     kind: LayerKind = "attn"
     window: int | None = None  # sliding-window size (None = full attention)
     cross_attention: bool = False  # decoder layer with cross-attn (enc-dec)
+    # a block of one mixer, x + mixer(norm(x)): "attn" attention alone,
+    # "moe" the MoE alone (Nemotron-H's blocks); an "ssm" layer is one anyway
+    mixer_only: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +47,7 @@ class ArchConfig:
     head_dim: int | None = None  # default d_model // num_heads
     attention: str = "gqa"  # gqa | mla
     rope_theta: float = 10_000.0
+    rope: bool = True  # rotary positions on GQA's q and k (Nemotron-H: none)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     mlp_gated: bool = True  # SwiGLU (True) vs GELU 2-matrix MLP (False)
@@ -77,6 +83,9 @@ class ArchConfig:
     # num_experts (0 = all) and computes their part of the output only
     experts_held: int = 0
     experts_offset: int = 0
+    # the routed and shared experts' function: "swiglu" down(silu(gate x)
+    # * up x), or "relu2" down(relu(up x)^2) (Nemotron-H's; no gate)
+    expert_act: str = "swiglu"  # swiglu | relu2
 
     # MLA (DeepSeek-V3)
     q_lora_rank: int = 0
@@ -94,9 +103,20 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 256
+    # the port's own (Nemotron-H's Mamba2): ``ssm_heads`` heads of
+    # ``ssm_head_dim`` make d_inner (0: ``ssm_expand * d_model``); B and C
+    # come in ``ssm_groups`` groups, head h reading group h // (heads /
+    # groups), and the gated norm is taken over each group's equal share
+    # of d_inner's channels (Mamba2's RMSNormGated(group_size=d_inner / groups))
+    ssm_heads: int = 0
+    ssm_groups: int = 1
     # hybrid (zamba2): one shared attention block applied every
     # `shared_attn_every` ssm layers
     shared_attn_every: int = 0
+    # a stack of single-mixer blocks, one character a layer (Nemotron-H's
+    # ``hybrid_override_pattern``): "M" Mamba2, "E" the MoE, "*" GQA
+    # attention; "" keeps the stack ``arch_type`` gives
+    layer_pattern: str = ""
 
     # enc-dec (whisper)
     encoder_layers: int = 0
@@ -137,6 +157,10 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
 
+    def ssm_d_inner(self) -> int:
+        """Mamba2's inner width: its heads' if given, else expand x d_model."""
+        return self.ssm_heads * self.ssm_head_dim if self.ssm_heads else self.ssm_expand * self.d_model
+
     def expert_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
@@ -169,9 +193,28 @@ def layer_segments(cfg: ArchConfig) -> list[tuple[list[LayerSpec], int]]:
     return segs
 
 
+#: the layer each character of ``layer_pattern`` stands for
+PATTERN = {"M": LayerSpec(kind="ssm"), "E": LayerSpec(kind="moe", mixer_only=True),
+           "*": LayerSpec(kind="attn", mixer_only=True)}
+
+
+def _pattern_segments(pattern: str) -> list[tuple[list[LayerSpec], int]]:
+    """One segment a run of equal characters, one layer its unit: remat
+    checkpoints one layer at a time."""
+    segs: list[tuple[list[LayerSpec], int]] = []
+    for ch in pattern:
+        if segs and segs[-1][0][0] == PATTERN[ch]:
+            segs[-1] = (segs[-1][0], segs[-1][1] + 1)
+        else:
+            segs.append(([PATTERN[ch]], 1))
+    return segs
+
+
 def _base_segments(cfg: ArchConfig) -> list[tuple[list[LayerSpec], int]]:
     segs: list[tuple[list[LayerSpec], int]] = []
-    if cfg.arch_type == "ssm":
+    if cfg.layer_pattern:
+        segs = _pattern_segments(cfg.layer_pattern)
+    elif cfg.arch_type == "ssm":
         segs.append(([LayerSpec(kind="ssm")], cfg.num_layers))
     elif cfg.arch_type == "hybrid":
         k = cfg.shared_attn_every or 6
@@ -211,6 +254,7 @@ def encoder_segments(cfg: ArchConfig) -> list[tuple[list[LayerSpec], int]]:
 
 
 def validate(cfg: ArchConfig) -> None:
+    assert set(cfg.layer_pattern) <= set(PATTERN), cfg.layer_pattern
     assert cfg.num_heads % max(cfg.num_kv_heads, 1) == 0 or cfg.attention == "mla"
     if cfg.reps_override is None:
         n_param_layers = sum(
@@ -227,3 +271,7 @@ def validate(cfg: ArchConfig) -> None:
         assert cfg.n_held() == cfg.num_experts or cfg.moe_dispatch == "dropless"
     if cfg.attention == "mla":
         assert cfg.kv_lora_rank > 0 and cfg.qk_rope_head_dim > 0
+    assert cfg.expert_act in ("swiglu", "relu2"), cfg.expert_act
+    if cfg.ssm_state:
+        d_inner = cfg.ssm_d_inner()
+        assert (d_inner // cfg.ssm_head_dim) % cfg.ssm_groups == 0

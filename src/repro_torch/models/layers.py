@@ -64,12 +64,20 @@ def init_mlp(generator, d: int, f: int, dtype, gated: bool = True, device="cpu",
     return p
 
 
-def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def relu2(u: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (Nemotron-H's MLP and experts)."""
+    return torch.square(F.relu(u))
+
+
+def apply_mlp(params: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """SwiGLU where the params have a gate, else ``down(act(up x))`` with
+    ``act`` "gelu" (tanh approximation) or "relu2"."""
     if "gate" in params:
         return swiglu(x, params["gate"], params["up"], params["down"])
     u = torch.matmul(x, params["up"].to(x.dtype))
     # jax.nn.gelu defaults to the tanh approximation
-    return torch.matmul(F.gelu(u, approximate="tanh"), params["down"].to(x.dtype))
+    h = relu2(u) if act == "relu2" else F.gelu(u, approximate="tanh")
+    return torch.matmul(h, params["down"].to(x.dtype))
 
 
 def rope_freqs(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:

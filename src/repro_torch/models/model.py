@@ -44,7 +44,7 @@ from repro_torch.models.layers import (
     softmax_cross_entropy,
 )
 from repro_torch.models.moe import router_bias_step_
-from repro_torch.models.ssm import ssm_dims
+from repro_torch.models.ssm import conv_channels, ssm_dims
 from repro_torch.models.transformer import (
     decode_stack,
     forward_stack,
@@ -84,7 +84,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, device="c
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(generator, cfg.d_model, cfg.padded_vocab(), dtype, dev)
-    if cfg.arch_type == "hybrid":
+    if cfg.arch_type == "hybrid" and not cfg.layer_pattern:  # Zamba2's
         params["shared_attn"] = init_shared_attn(generator, cfg, dtype, dev)
     if cfg.is_encdec():
         params["encoder"] = init_segments(generator, encoder_segments(cfg), cfg, dtype, dev)
@@ -249,7 +249,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda", enc_len
     (reps, batch, S, kv_lora_rank) and (reps, batch, S, qk_rope_head_dim)
     for MLA, both in the compute dtype; for SSD the float32 state (reps,
     batch, H, N, P) and the conv tail (reps, batch, conv_width - 1,
-    conv channels) in the compute dtype. A sliding-window layer gets a
+    conv channels) in the compute dtype; nothing (an empty entry) for a
+    block of the MoE alone. A sliding-window layer gets a
     ring of its window's size under ``cfg.windowed_cache``. A
     cross-attention layer's entry adds the encoder side's (k, v) of
     shape (reps, batch, enc_len, K, hd)."""
@@ -266,7 +267,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda", enc_len
             if spec.kind == "ssm":
                 d_inner, H, P, N = ssm_dims(cfg)
                 seg.append((zeros(reps, batch, H, N, P, dtype=torch.float32),
-                            zeros(reps, batch, cfg.ssm_conv_width - 1, d_inner + 2 * N)))
+                            zeros(reps, batch, cfg.ssm_conv_width - 1, conv_channels(cfg))))
+            elif spec.mixer_only and spec.kind == "moe":
+                seg.append(())
             elif cfg.attention == "mla":
                 seg.append((zeros(reps, batch, max_len, cfg.kv_lora_rank),
                             zeros(reps, batch, max_len, cfg.qk_rope_head_dim)))

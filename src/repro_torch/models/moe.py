@@ -19,8 +19,12 @@ expert i (times E / (k T)) and ``P_i`` is the mean of ``s_i / sum_j s_j``.
 scheme): slot ``i`` holds token ``i // k``'s choice ``i % k``; its position
 within its expert is an integer cumsum, and slots past the capacity
 ``C`` are dropped (their residual passes through). Kept slots land in a
-dense ``(E, C, d)`` buffer, the SwiGLU experts run as batched products
-over it, and the results come back weighted by the gates.
+dense ``(E, C, d)`` buffer, the experts run as batched products over
+it, and the results come back weighted by the gates.
+
+**Experts** are SwiGLU (``expert_act="swiglu"``: gate, up, down) or
+Nemotron-H's relu^2 (``"relu2"``: ``down(relu(up x)^2)``, two products
+and no gate), the shared experts alike.
 
 **Drop-free dispatch over the held experts** (``moe_dispatch="dropless"``;
 ``experts_held``/``experts_offset`` give the share). The router keeps all
@@ -55,21 +59,25 @@ import torch.nn.functional as F
 
 from repro_torch import trace
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _normal, apply_mlp, init_linear, init_mlp
+from repro_torch.models.layers import _normal, apply_mlp, init_linear, init_mlp, relu2
 
 
 def init_moe(generator, cfg: ArchConfig, dtype, device="cpu", lead: tuple = ()) -> dict:
     """The router over all ``num_experts``, the selection bias with the
-    sigmoid router, and the held experts' weights."""
+    sigmoid router, and the held experts' weights (no gate for relu^2
+    experts)."""
     E, H, d, f = cfg.num_experts, cfg.n_held(), cfg.d_model, cfg.expert_ff()
+    gated = cfg.expert_act == "swiglu"
     p = {"router": init_linear(generator, d, E, torch.float32, device, lead)}  # router kept f32
     if cfg.router_score == "sigmoid":
         p["router_bias"] = torch.zeros(lead + (E,), dtype=torch.float32, device=device)
-    p["gate"] = _normal(lead + (H, d, f), d ** -0.5, dtype, generator, device)
+    if gated:
+        p["gate"] = _normal(lead + (H, d, f), d ** -0.5, dtype, generator, device)
     p["up"] = _normal(lead + (H, d, f), d ** -0.5, dtype, generator, device)
     p["down"] = _normal(lead + (H, f, d), f ** -0.5, dtype, generator, device)
     if cfg.num_shared_experts:
-        p["shared"] = init_mlp(generator, d, f * cfg.num_shared_experts, dtype, device=device, lead=lead)
+        p["shared"] = init_mlp(generator, d, f * cfg.num_shared_experts, dtype, gated=gated, device=device,
+                               lead=lead)
     return p
 
 
@@ -151,10 +159,10 @@ def experts_capacity(params: dict, xt: torch.Tensor, topw: torch.Tensor, topi: t
         buf = flat[: E * C].reshape(E, C, d) + 0.0
 
     with trace.span("moe.experts"):
-        # expert FFN (SwiGLU) as batched products over the experts
-        g = torch.bmm(buf, params["gate"].to(buf.dtype))
+        # expert FFN as batched products over the experts
         u = torch.bmm(buf, params["up"].to(buf.dtype))
-        y = torch.bmm(F.silu(g) * u, params["down"].to(buf.dtype))
+        h = F.silu(torch.bmm(buf, params["gate"].to(buf.dtype))) * u if "gate" in params else relu2(u)
+        y = torch.bmm(h, params["down"].to(buf.dtype))
 
     with trace.span("moe.combine"):
         y_flat = torch.cat([y.reshape(E * C, d), torch.zeros((1, d), dtype=y.dtype, device=y.device)])
@@ -260,9 +268,12 @@ def experts_dropless(params: dict, xt: torch.Tensor, topw: torch.Tensor, topi: t
         xs = _Dispatch.apply(xt, token_of_row, row_of_slot, k)
     with trace.span("moe.experts"):
         dt = xt.dtype
-        g = grouped_mm(xs, _with_zero_expert(params["gate"], dt), offs)
         u = grouped_mm(xs, _with_zero_expert(params["up"], dt), offs)
-        ys = grouped_mm(F.silu(g) * u, _with_zero_expert(params["down"], dt), offs)
+        if "gate" in params:
+            h = F.silu(grouped_mm(xs, _with_zero_expert(params["gate"], dt), offs)) * u
+        else:
+            h = relu2(u)
+        ys = grouped_mm(h, _with_zero_expert(params["down"], dt), offs)
     with trace.span("moe.combine"):
         y = _Combine.apply(ys, row_of_slot, slot_of_row) * topw.reshape(t * k, 1).to(dt)
         out = torch.sum(y.reshape(t, k, d), dim=1)
@@ -284,7 +295,7 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig):
         out, stats = experts_capacity(params, xt, topw, topi, cfg), None
     if "shared" in params:
         with trace.span("moe.shared"):
-            out = out + apply_mlp(params["shared"], xt)
+            out = out + apply_mlp(params["shared"], xt, cfg.expert_act)
     return out.reshape(b, s, d), aux, stats
 
 

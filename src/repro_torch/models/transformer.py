@@ -9,9 +9,12 @@ each repeat of the unit (the reference's ``jax.checkpoint`` of the scan
 body): the backward recomputes the same ops, so the bits do not change.
 
 Layer kinds: GQA attention (sliding-window or full) and MLA, each with a
-dense MLP or an MoE; Mamba2 SSD; and ``shared_attn`` (Zamba2), which
+dense MLP or an MoE; Mamba2 SSD; ``shared_attn`` (Zamba2), which
 applies the one un-stacked ``shared_params`` block and still gets a
-cache slot of its own for each application. A unit position of kind
+cache slot of its own for each application; and Nemotron-H's
+single-mixer blocks (``LayerSpec.mixer_only``), ``x + mixer(norm(x))``
+with attention alone or the MoE alone (params ``ln1`` and ``attn`` or
+``moe``; a MoE block's cache entry is empty). A unit position of kind
 ``shared_attn`` holds ``None`` in the stacked parameters. Caches are a
 pair per layer: (k, v) for GQA, (c_kv, k_rope) for MLA, (state, conv)
 for SSD; a decoder layer with cross-attention (enc-dec) appends the
@@ -50,6 +53,9 @@ def init_layer(generator, spec: LayerSpec, cfg: ArchConfig, dtype, device="cpu",
     if spec.kind == "ssm":
         return {"ln1": init_rms_norm(cfg.d_model, dtype, device, lead),
                 "ssm": init_ssm(generator, cfg, dtype, device, lead)}
+    if spec.mixer_only and spec.kind == "moe":
+        return {"ln1": init_rms_norm(cfg.d_model, dtype, device, lead),
+                "moe": init_moe(generator, cfg, dtype, device, lead)}
     init_attn = attn.init_mla if _is_mla(spec, cfg) else attn.init_gqa
     p: dict[str, Any] = {
         "ln1": init_rms_norm(cfg.d_model, dtype, device, lead),
@@ -58,6 +64,8 @@ def init_layer(generator, spec: LayerSpec, cfg: ArchConfig, dtype, device="cpu",
     if spec.cross_attention:
         p["ln_x"] = init_rms_norm(cfg.d_model, dtype, device, lead)
         p["cross"] = attn.init_cross(generator, cfg, dtype, device, lead)
+    if spec.mixer_only:
+        return p
     p["ln2"] = init_rms_norm(cfg.d_model, dtype, device, lead)
     if spec.kind == "moe":
         p["moe"] = init_moe(generator, cfg, dtype, device, lead)
@@ -93,6 +101,9 @@ def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor,
     if spec.kind == "ssm":
         h, cache = ssd_full(p["ssm"], h_in, cfg)
         return x + h, cache, None, None
+    if spec.mixer_only and spec.kind == "moe":
+        h, aux, stats = moe_layer(p["moe"], h_in, cfg)
+        return x + h, (), aux, stats
     if _is_mla(spec, cfg):
         h, cache = attn.mla_full(p["attn"], h_in, positions, cfg)
     else:
@@ -104,6 +115,8 @@ def apply_layer_full(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor,
         ck, cv = attn.cross_kv(p["cross"], enc_out, cfg)
         x = x + attn.cross_attend(p["cross"], rms_norm(x, p["ln_x"], cfg.norm_eps), ck, cv, cfg)
         cache = cache + (ck, cv)
+    if spec.mixer_only:
+        return x, cache, None, None
     x, aux, stats = _ffn(p, spec, cfg, x)
     return x, cache, aux, stats
 
@@ -114,9 +127,13 @@ def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tenso
     are written (K/V and latents at their positions, SSD state and conv
     tail whole) and come back; by default new tensors (the same bits).
     A cross-attention layer's encoder K/V (``cache[2:]``) are read, never
-    written, and come back as they are."""
-    c0, c1 = cache[:2]
+    written, and come back as they are. A block of the MoE alone has an
+    empty entry."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if spec.mixer_only and spec.kind == "moe":
+        h, _, _ = moe_layer(p["moe"], h_in, cfg)
+        return x + h, cache
+    c0, c1 = cache[:2]
     if spec.kind == "ssm":
         h, state, conv = ssd_decode(p["ssm"], h_in, c0, c1, cfg)
         if in_place:
@@ -132,7 +149,8 @@ def apply_layer_decode(p: dict, spec: LayerSpec, cfg: ArchConfig, x: torch.Tenso
     if spec.cross_attention:
         enc_k, enc_v = cache[2], cache[3]
         x = x + attn.cross_attend(p["cross"], rms_norm(x, p["ln_x"], cfg.norm_eps), enc_k, enc_v, cfg)
-    x, _, _ = _ffn(p, spec, cfg, x)
+    if not spec.mixer_only:
+        x, _, _ = _ffn(p, spec, cfg, x)
     return x, (c0, c1) + tuple(cache[2:])
 
 

@@ -1503,3 +1503,176 @@ def test_cuda_mla_prefill_through_k6_matches_decode(cuda_device):
     assert counts["mla_attend_calls"] == {"kernel": 1, "plain": 16}
     for i, step in enumerate(steps):
         torch.testing.assert_close(step, full[:, i], rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# Nemotron-H's hybrid block at Nemotron 3 Nano's widths
+# (``bench/configs/nemotron3nano_l7.json``): grouped Mamba-2 trained at 8k,
+# K6 at 32 query heads over 2, the whole 7-block stack against float32
+# ---------------------------------------------------------------------------
+
+def _nemotron(pattern="MEMEM*E", compute_dtype="bfloat16"):
+    """Nemotron 3 Nano's blocks: d 2688; Mamba-2 64 heads of 64 in 8 groups,
+    state 128, conv 4, chunk 128; relu^2 experts of 1 856, 16 of 128 held,
+    top-6, a shared expert of 3 712; 32 query heads over 2, head 128, no
+    positions; an eighth of the vocabulary."""
+    from repro_torch.models.config import ArchConfig
+
+    return ArchConfig(name="nemotron-3-nano", arch_type="hybrid", num_layers=len(pattern), layer_pattern=pattern,
+                      d_model=2688, num_heads=32, num_kv_heads=2, head_dim=128, d_ff=1856, moe_d_ff=1856,
+                      vocab=16384, rope=False, mlp_gated=False, ssm_state=128, ssm_head_dim=64, ssm_heads=64,
+                      ssm_groups=8, ssm_conv_width=4, ssm_chunk=128, num_experts=128,
+                      num_experts_per_tok=6, num_shared_experts=2, expert_act="relu2", router_score="sigmoid",
+                      routed_scaling_factor=2.5, router_bias_rate=0.001, router_aux_coef=1e-4,
+                      moe_dispatch="dropless", experts_held=16, compute_dtype=compute_dtype, remat=True)
+
+
+def _nemotron_arch(cfg) -> dict:
+    import dataclasses
+
+    return dataclasses.asdict(cfg)
+
+
+def _mamba2_init_(params: dict, gen) -> None:
+    """Mamba-2's A_log, dt_bias and D draws on (..., H) leaves, in place."""
+    for name, a in params.items():
+        u = torch.rand(a.shape, generator=gen, device=a.device)
+        if name == "a_log":
+            a.copy_(torch.log(1.0 + 15.0 * u))
+        elif name == "dt_bias":
+            dt = torch.exp(np.log(1e-3) + (np.log(0.1) - np.log(1e-3)) * u).clamp(min=1e-4)
+            a.copy_(dt + torch.log(-torch.expm1(-dt)))
+        elif name == "D":
+            a.copy_(u + 0.5)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+#: the Mamba-2 block in bf16 against float32: each of output, dx and the
+#: weight gradients, the largest error over the largest value. bf16 rounds
+#: the input, each weight and each product's inputs to 8 bits (2^-8 = 0.4 %
+#: a rounding), summed over in_proj's 2 688 and the scan's 128-position
+#: chunks; 3e-2 is the MoE card test's bound for the same rounding
+_MAMBA2_BF16_TOL = 3e-2
+#: the same block in float32 on both sides (TF32 off): only the order of
+#: float32 sums differs (the port's loop over the 64 chunks against the
+#: reference's one product over them)
+_MAMBA2_F32_TOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_block_at_nemotron_widths_matches_float32(cuda_device):
+    """One grouped Mamba-2 mixer at Nemotron 3 Nano's widths, b 1, s 8 192
+    (64 chunks), forward and backward through ``ssd_full``: in bf16 within
+    ``_MAMBA2_BF16_TOL`` of the float32 reference
+    (``tests/plain/nemotron_h.py``), in float32 within ``_MAMBA2_F32_TOL``;
+    ``ssm_calls`` counts one full call."""
+    import dataclasses
+
+    from plain import nemotron_h as nref
+    from repro_torch.models import ssm
+
+    cfg = _nemotron("M")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    params = ssm.init_ssm(gen, cfg, torch.float32, cuda_device)
+    _mamba2_init_(params, gen)
+    params["conv_b"].normal_(generator=gen).mul_(0.1)
+    x = torch.randn((1, 8192, cfg.d_model), generator=gen, device=cuda_device)
+    cot = torch.randn((1, 8192, cfg.d_model), generator=gen, device=cuda_device)
+    names = sorted(params)
+
+    def port(dtype):
+        c = cfg if dtype == torch.bfloat16 else dataclasses.replace(cfg, compute_dtype="float32")
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        xx = x.to(dtype).detach().clone().requires_grad_(True)
+        out = ssm.ssd_full(leaves, xx, c)[0]
+        (out.float() * cot).sum().backward()
+        return [out.detach(), xx.grad] + [leaves[k].grad for k in names]
+
+    with nref.exact_matmuls():
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        xx = x[0].clone().requires_grad_(True)
+        out = nref.mamba2(xx, leaves, _nemotron_arch(cfg))
+        (out * cot[0]).sum().backward()
+        want = [out.detach()[None], xx.grad[None]] + [leaves[k].grad for k in names]
+        f32 = port(torch.float32)
+    got, counts = _traced(lambda: port(torch.bfloat16))
+    labels = ["out", "dx"] + [f"d{k}" for k in names]
+    bf16 = {n: _rel(g, w) for n, g, w in zip(labels, got, want)}
+    exact = {n: _rel(g, w) for n, g, w in zip(labels, f32, want)}
+    print(f"Mamba-2 block at 8k, bf16 against float32 {bf16}; float32 against float32 {exact}")
+    assert counts["ssm_calls"] == {"full": 1}
+    assert all(e <= _MAMBA2_BF16_TOL for e in bf16.values()), bf16
+    assert all(e <= _MAMBA2_F32_TOL for e in exact.values()), exact
+
+
+@pytest.mark.cuda
+def test_cuda_attention_at_nemotron_heads_8k(cuda_device):
+    """K6 at Nemotron 3 Nano's attention, 32 query heads over 2 KV heads of
+    128 (16 a group), b 1, s 8 192: O, dq, dk, dv within ``K6_TOL`` of
+    float32 ``_sdpa`` block by block, and the same bits on a second call."""
+    pos = _smoke.k6_positions("index", 1, 8192, cuda_device)
+    q, k, v, do = _smoke.k6_inputs(1, 8192, 32, 2, cuda_device, seed=3)
+    got = _smoke.k6_run(_smoke.k6_kernel(pos, None), q, k, v, do, torch.bfloat16)
+    again = _smoke.k6_run(_smoke.k6_kernel(pos, None), q, k, v, do, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = _smoke.k6_run(_smoke.k6_plain(pos, None), q, k, v, do, torch.float32)
+    err = dict(zip(("o", "dq", "dk", "dv"), _smoke.k6_block_errors(got, want)))
+    print(f"K6 at 32 / 2 heads, s 8192: {err}")
+    assert all(e <= _smoke.K6_TOL for e in err.values()), err
+
+
+@pytest.mark.cuda
+def test_cuda_nemotron_stack_bf16_matches_float32(cuda_device):
+    """The 7 published blocks (``MEMEM*E``) at Nemotron 3 Nano's widths in
+    bf16 through ``loss_fn`` with remat (K6 taken, the grouped relu^2
+    experts through ``torch._grouped_mm``), one sequence of 8 192 tokens,
+    against the float32 reference: the loss and the worst leaf's gradient
+    norm within the cell's own limits (``sgd.loss_gap``, ``sgd.grad_gap``
+    of ``bench/limits/nemotron3nano_l7.sgd_zipf_8k.json``), measured as
+    the cell's check measures them."""
+    import json
+
+    from plain import nemotron_h as nref
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = _nemotron()
+    params = init_params(cfg, 5, cuda_device)
+    named = {".".join(map(str, p)): a for p, a in tree_leaves_with_path(params)}
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6)
+    for prefix in {k.rsplit(".", 1)[0] for k in named if ".ssm." in k}:
+        _mamba2_init_({k.rsplit(".", 1)[1]: v for k, v in named.items() if k.rsplit(".", 1)[0] == prefix}, gen)
+    tok = torch.randint(0, cfg.vocab, (1, 8192), generator=gen, device=cuda_device)
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1), "mask": torch.ones((1, 8192), device=cuda_device)}
+    limits = json.loads((Path(__file__).resolve().parents[1] / "bench" / "limits"
+                         / "nemotron3nano_l7.sgd_zipf_8k.json").read_text())
+
+    leaves = {k: v.detach().clone().requires_grad_(nref.trained(k)) for k, v in named.items()}
+    tops.reset_launches()
+    (loss, _), counts = _traced(lambda: loss_fn(_tree_of(params, leaves), cfg, batch))
+    loss.backward()
+    assert counts["attention_calls"] == {"kernel": 1} and counts["ssm_calls"] == {"full": 3}
+    got = {k: float(torch.linalg.vector_norm(v.grad.double())) for k, v in leaves.items() if v.requires_grad}
+    del leaves
+    with nref.exact_matmuls():
+        wts = {k: v.detach().clone().requires_grad_(nref.trained(k)) for k, v in named.items()}
+        value, _, _ = nref.sequence_loss(wts, _nemotron_arch(cfg), tok[0], batch["labels"][0])
+        value.backward()
+    want = {k: float(torch.linalg.vector_norm(v.grad.double())) for k, v in wts.items() if v.requires_grad}
+    loss_gap = abs(float(loss.detach()) - float(value.detach())) / abs(float(value.detach()))
+    grad_gap = nref.worst_leaf_gap(got, want)
+    print(f"7 blocks at 8k, bf16 against float32: loss gap {loss_gap:.6f}, grad gap {grad_gap:.6f}")
+    assert loss_gap <= limits["sgd.loss_gap"] and grad_gap <= limits["sgd.grad_gap"], (loss_gap, grad_gap)
+
+
+def _tree_of(params, named: dict):
+    """``params``' tree with each leaf replaced by ``named``'s of its path."""
+    from repro_torch.tree import tree_map_with_path
+
+    return tree_map_with_path(lambda p, a: named[".".join(map(str, p))], params)

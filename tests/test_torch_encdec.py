@@ -54,9 +54,11 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 
 #: the port's own ArchConfig fields (DeepSeek-V3's router, drop-free
-#: dispatch, one chip's share of the experts), absent from the reference's
+#: dispatch, one chip's share of the experts; Nemotron-H's grouped Mamba2,
+#: relu^2 experts, attention without positions and layer pattern), absent
+#: from the reference's
 PORT_FIELDS = {"router_score", "routed_scaling_factor", "router_bias_rate", "moe_dispatch", "experts_held",
-               "experts_offset"}
+               "experts_offset", "ssm_heads", "ssm_groups", "expert_act", "rope", "layer_pattern"}
 
 
 def config_fields(port, ref) -> tuple[dict, dict]:
